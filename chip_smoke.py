@@ -8,28 +8,51 @@ non-zero:
 
 1. device: needs a CUDA device; prints its name and what
    `nvidia-smi --query-gpu=name,power.limit` reports;
-2. build: compiles the Kepler kernel from `octofitter_tpu_torch/orbits/
-   kernels/csrc/kepler.cu` with nvcc into the git-ignored build directory;
-3. kernel vs twin: the kernel against its plain PyTorch twin on the card,
-   in float32 and float64, on 2^20 random (M, e) plus edge cases, then
-   at the main path's (chains, 12) shape and at 2^23 elements, where
-   both are also timed with CUDA events;
-4. main path: the benchmark's headline model (`bench.py:build_model`:
+2. build: compiles both kernel libraries (`kepler.cu`, `orbit_solve.cu`
+   and the header `kepler.cuh` under `octofitter_tpu_torch/orbits/
+   kernels/csrc/`) with nvcc, one process each, started together, into
+   the git-ignored build directory; prints ptxas's register and spill
+   lines;
+3. Kepler kernel vs twin: the kernel against its plain PyTorch twin on
+   the card, in float32 and float64, on 2^20 random (M, e) plus edge
+   cases, then at the main path's (chains, 12) shape and at 2^23
+   elements, where both are also timed with CUDA events;
+4. orbit-solve kernels vs plain: the fused forward against the composed
+   torch ops, and the fused backward against autograd through them, in
+   both precisions, at (chains, 12) and at 2^17 chains x 64 epochs, on
+   elements drawn from the benchmark priors' ranges plus edge chains;
+   the backward runs twice and must repeat its bits; all four are timed;
+5. main path: the benchmark's headline model (`bench.py:build_model`:
    quick-start relative astrometry, 12 epochs, 2 mas noise, seed 0) in
    float32 on the GPU, checked against a float64 CPU model, then
    `octofit` with initialization at 4096 chains, 700 adaptation steps
    (as the bench) and 1000 draws (the bench's 3000, cut to keep the
-   run to a few minutes); checks finite
-   draws, max split-R-hat < 1.05, the posterior median of b_a within 5 sd
-   of the true 7.0, and that the Kepler kernel was launched.
+   run to a few minutes); checks finite draws, max split-R-hat < 1.05,
+   the posterior median of b_a within 5 sd of the true 7.0, and that all
+   three kernels were launched (the standalone Kepler kernel by the
+   Laplace step, the fused pair by every gradient evaluation);
+6. Kepler kernel at the main path's shapes: the main path reaches the
+   standalone kernel only from the Laplace step's Hessian, with a
+   handful of elements whose eccentricity arrives expanded; the kernel is
+   held against its twin, through `kepler_solver`, at every shape that
+   run launched it with, in both precisions, and timed there;
+7. fused vs composed: one batched `ln_post_and_grad` at 4096 chains
+   through the fused kernels and through the composed path, in turns,
+   with CUDA events and the host clock.
 
-The second-to-last line is a JSON object describing each kernel; the
-last is `{"ok": true, "device": {...}}`. Imports no JAX.
+The second-to-last line is a JSON object describing each kernel in
+float32 at the shape the main path launches it with (`max_abs_err`: of E
+for `kepler_solve`, the largest over the 14 fields in their own units for
+`orbit_solve_fwd`, the worst chain's scaled gradient error for
+`orbit_solve_bwd`; `kepler_solve` also carries the composed path's
+(chains, 12) shape under `composed_*` keys); the last is
+`{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,6 +77,44 @@ TOL = {torch.float32: 5e-6, torch.float64: 1e-12}
 RESID_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 
 
+# Orbit-solve kernels vs their plain versions. Here the mean anomaly is
+# computed on both sides, and may differ by two ulps of |M| (MA_TOL, at
+# |M| = 50): the plain version forms the mean motion as 2 pi times a
+# reciprocal and the kernel as a quotient, one ulp apart, and the product
+# with t - tp rounds once more. E then differs by that over 1 - e cos E,
+# on top of the Kepler tolerance TOL; both grow with |M|/50. A field's
+# tolerance is E's carried through the field's derivative with respect to
+# E, plus OWN for the roundings of the field's own arithmetic: positions
+# scale with a, the true anomaly with sqrt(1 - e^2) / (1 - e cos E),
+# velocities with a n / (1 - e cos E)^2, and the sky fields with the
+# parallax and the unit factors on top.
+MA_TOL = {torch.float32: 1.2e-5, torch.float64: 2.5e-14}
+OWN = {torch.float32: 1e-6, torch.float64: 1e-13}
+# Backward: for each chain, the largest error over the 8 element rows
+# against the chain's largest gradient entry (at least 1), every row first
+# divided by its median magnitude over chains so that rows of different
+# units compare. Float32 sums 12 to 64 epochs of terms that cancel.
+BWD_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
+BIG_CHAINS, BIG_EPOCHS = 2**17, 64
+
+# For the bounds: an H100 SXM moves 3.35 TB/s and does 67 TFLOP/s in
+# float32 outside the tensor cores (NVIDIA's data sheet; float64 is half
+# that). Arithmetic operations per element, each divide, sqrt, cbrt,
+# sincos and atan2 counted as one: the Kepler solve about 90 (kepler.cuh),
+# the other 13 fields of the forward about 110 more, the backward's sweep
+# about 250.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+OPS_KEPLER, OPS_ORBIT_FWD, OPS_ORBIT_BWD = 90, 200, 250
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -72,14 +133,18 @@ def device_phase() -> tuple[str, str]:
     return name, smi
 
 
-def build_phase(kk) -> float:
+def build_phase(sources) -> float:
+    from octofitter_tpu_torch.orbits.kernels.build import build_all, source_files
+
     t0 = time.perf_counter()
-    nvcc_log = kk.build_kernel()
+    built = build_all(sources)
     dt = time.perf_counter() - t0
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    log(f"build: kepler.cu -> {kk.SOURCE.name} library in {dt:.2f} s")
+    for source, (path, nvcc_log) in zip(sources, built):
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {source.name}: {line.strip()}")
+        log(f"build: {' + '.join(f.name for f in source_files(source))} -> {path.name}")
+    log(f"build: {len(sources)} libraries in {dt:.2f} s (one nvcc each, in parallel)")
     return dt
 
 
@@ -102,17 +167,24 @@ def _inputs(dtype):
     return to(M), to(e)
 
 
-def _time_ms(fn, n_iter):
+def _time_both(fn, n_iter):
+    """ms per call of `fn` over `n_iter` back-to-back calls after one
+    warm-up: by CUDA events, and by the host clock around a synchronize."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(n_iter):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n_iter
+    return start.elapsed_time(stop) / n_iter, (time.perf_counter() - t0) / n_iter * 1e3
+
+
+def _time_ms(fn, n_iter):
+    return _time_both(fn, n_iter)[0]
 
 
 def kernel_phase(kk, twin, chains: int) -> dict:
@@ -164,6 +236,166 @@ def kernel_phase(kk, twin, chains: int) -> dict:
                 f"(runs: kernel {ms_k_a:.4f}/{ms_k_b:.4f}, twin {ms_twin_a:.4f}/{ms_twin_b:.4f}; "
                 f"kernel {n / ms_k / 1e6:.3f} Gsolves/s)")
     return {"errs": errs, "timing": timing}
+
+
+def _orbit_inputs(n_chains: int, n_epochs: int, dtype):
+    """Elements (8, B) and epochs (T,) on the card: drawn with numpy from
+    the benchmark priors' ranges (a from 2 AU up, so that the bulk stays
+    within a few periods of tp), then edge chains: e = 0, e = 0.99, i = 0,
+    i = pi / 2, an epoch exactly at tp, and two chains of a = 0.3 AU whose
+    epochs lie up to 120 periods from tp (one of them at e = 0.99)."""
+    rng = np.random.default_rng(2)
+    epochs = np.linspace(55000.0, 59500.0, n_epochs)
+    a = rng.uniform(2.0, 100.0, n_chains)
+    e = rng.uniform(0.0, 0.99, n_chains)
+    inc = np.arccos(rng.uniform(-1.0, 1.0, n_chains))
+    omega = rng.uniform(-np.pi, np.pi, n_chains)
+    Omega = rng.uniform(-np.pi, np.pi, n_chains)
+    tp = rng.uniform(53000.0, 61000.0, n_chains)
+    mass = np.clip(rng.normal(1.2, 0.1, n_chains), 0.1, None)
+    plx = np.clip(rng.normal(50.0, 0.02, n_chains), 0.1, None)
+    e[0], e[1], inc[2], inc[3] = 0.0, 0.99, 0.0, np.pi / 2
+    tp[4] = epochs[n_epochs // 2]
+    a[5], a[6], e[6] = 0.3, 0.3, 0.99
+    elems = np.stack([a, e, inc, omega, Omega, tp, mass, plx])
+    return (torch.as_tensor(elems, dtype=dtype, device="cuda"),
+            torch.as_tensor(epochs, dtype=dtype, device="cuda"))
+
+
+def _field_tolerances(elems, t, EA, dtype):
+    """(14, B, T) absolute tolerances, evaluated in float64 (see OWN)."""
+    from octofitter_tpu_torch.constants import AUDAY_TO_MS, JULIAN_YEAR_DAYS, KEPLER_YEAR_DAYS
+
+    a, e, _, _, _, tp, mass, plx = (x.double()[:, None] for x in elems)
+    n = 2 * math.pi / (torch.sqrt(a**3 / mass) * KEPLER_YEAR_DAYS)
+    scale = torch.clamp((n * (t.double() - tp)).abs() / 50.0, min=1.0)
+    f1 = 1 - e * torch.cos(EA.double())
+    d_E = (TOL[dtype] + MA_TOL[dtype] / f1) * scale
+    own = OWN[dtype]
+    nu = d_E * torch.sqrt(1 - e * e) / f1 + own
+    pos = a * (d_E + own)
+    vel = a * n / (f1 * f1) * (d_E + own)
+    return torch.stack([d_E, nu, pos, pos, pos, pos, vel, vel, vel, pos * plx, pos * plx,
+                        vel * plx * JULIAN_YEAR_DAYS, vel * plx * JULIAN_YEAR_DAYS,
+                        vel * AUDAY_TO_MS])
+
+
+def _worst_chain_error(g_kernel, g_plain) -> float:
+    """The backward kernel's error as BWD_TOL measures it."""
+    unit = g_plain.double().abs().median(dim=1, keepdim=True).values
+    err = ((g_kernel.double() - g_plain.double()).abs() / unit).amax(dim=0)
+    ref = torch.clamp((g_plain.double().abs() / unit).amax(dim=0), min=1.0)
+    return float((err / ref).max())
+
+
+def orbit_phase(osk, elements, chains: int) -> dict:
+    """Fused forward and backward kernels against their plain versions on
+    the card, then their timings. Returns, per kernel, the float32 error
+    and timings at the main path's shape and at the large one."""
+    res = {"fwd": {}, "bwd": {}}
+    shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS),
+              (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS))
+    for label, n_chains, n_epochs in shapes:
+        for dtype in (torch.float32, torch.float64):
+            elems, t = _orbit_inputs(n_chains, n_epochs, dtype)
+            leaf = elems.clone().requires_grad_(True)
+            plain = torch.stack(elements._kep_visual_fields(elements.VisualOrbit(*leaf), t))
+            out = osk.orbit_solve_forward_cuda(elems, t)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"orbit_solve forward returned non-finite values in {dtype}")
+            err = (out.double() - plain.detach().double()).abs()
+            # the true anomaly is an angle: compare it modulo 2 pi
+            err[1] = (torch.remainder(err[1] + math.pi, 2 * math.pi) - math.pi).abs()
+            ratio = err / _field_tolerances(elems, t, plain[0].detach(), dtype)
+            worst = ratio.amax(dim=(1, 2))
+            k = int(worst.argmax())
+            log(f"orbit_solve forward vs plain {label} {dtype}: worst field {elements.FIELD_ROWS[k]} at "
+                f"{float(worst[k]):.3f} of its tolerance; max |dE| {float(err[0].max()):.3e}, "
+                f"max |d raoff| {float(err[9].max()):.3e} mas, max |d pmra| "
+                f"{float(err[11].max()):.3e} mas/yr")
+            if not float(worst.max()) <= 1.0:
+                raise AssertionError(
+                    f"orbit_solve forward disagrees with its plain version at {label} in "
+                    f"{dtype}: {dict(zip(elements.FIELD_ROWS, worst.tolist()))}")
+
+            # backward: a cotangent of order 1 / |field| on every field
+            rng = np.random.default_rng(3)
+            g = torch.as_tensor(rng.standard_normal((len(elements.FIELD_ROWS), n_chains, n_epochs)),
+                                dtype=dtype, device="cuda")
+            g = (g / plain.detach().abs().amax(dim=(1, 2), keepdim=True)).contiguous()
+            (g_plain,) = torch.autograd.grad(plain, leaf, g, retain_graph=True)
+            EA = plain[0].detach().contiguous()
+            g_k = osk.orbit_solve_backward_cuda(elems, t, EA, g, True)
+            g_k2 = osk.orbit_solve_backward_cuda(elems, t, EA, g, True)
+            torch.cuda.synchronize()
+            if not torch.equal(g_k, g_k2):
+                raise AssertionError(f"orbit_solve backward is not bitwise repeatable in {dtype}")
+            if not bool(torch.isfinite(g_k).all()):
+                raise AssertionError(f"orbit_solve backward returned non-finite values in {dtype}")
+            worst_b = _worst_chain_error(g_k, g_plain)
+            log(f"orbit_solve backward vs autograd of plain {label} {dtype}: worst chain "
+                f"{worst_b:.3e} of its largest gradient entry (tol {BWD_TOL[dtype]:.0e}); "
+                f"two runs bitwise equal")
+            if not worst_b <= BWD_TOL[dtype]:
+                raise AssertionError(
+                    f"orbit_solve backward disagrees with autograd at {label} in {dtype}: {worst_b:.3e}")
+
+            n_iter = 100 if n_chains * n_epochs < 2**20 else 10
+            orbit = elements.VisualOrbit(*elems)
+
+            def plain_fwd():
+                with torch.no_grad():
+                    return torch.stack(elements._kep_visual_fields(orbit, t))
+
+            def plain_bwd():
+                return torch.autograd.grad(plain, leaf, g, retain_graph=True)
+
+            for name, f_plain, f_kernel in (
+                    ("fwd", plain_fwd, lambda: osk.orbit_solve_forward_cuda(elems, t)),
+                    ("bwd", plain_bwd, lambda: osk.orbit_solve_backward_cuda(elems, t, EA, g, True))):
+                ms_p_a = _time_ms(f_plain, n_iter)
+                ms_k_a = _time_ms(f_kernel, n_iter)
+                ms_k_b = _time_ms(f_kernel, n_iter)
+                ms_p_b = _time_ms(f_plain, n_iter)
+                ms_k, ms_p = min(ms_k_a, ms_k_b), min(ms_p_a, ms_p_b)
+                log(f"timing orbit_solve {name} {label} {dtype}: kernel {ms_k:.4f} ms, plain "
+                    f"{ms_p:.4f} ms (runs: kernel {ms_k_a:.4f}/{ms_k_b:.4f}, plain "
+                    f"{ms_p_a:.4f}/{ms_p_b:.4f})")
+                res[name][(label, dtype)] = dict(
+                    ms=ms_k, plain_ms=ms_p,
+                    err=float(err.max()) if name == "fwd" else worst_b,
+                    err_over_tol=float(worst.max()) if name == "fwd" else worst_b / BWD_TOL[dtype])
+            del plain, leaf, g, g_plain, out, err, ratio
+            torch.cuda.empty_cache()
+
+    # a KepOrbit (no parallax): NaN sky fields forward, and a backward that
+    # leaves them out, against autograd through the plain version
+    for dtype in (torch.float32, torch.float64):
+        elems, t = _orbit_inputs(chains, N_EPOCHS, dtype)
+        elems[7] = math.nan
+        leaf = elems[:7].clone().requires_grad_(True)
+        sky = [9, 10, 11, 12]
+        rest = [k for k in range(len(elements.FIELD_ROWS)) if k not in sky]
+        fields = elements._kep_visual_fields(elements.KepOrbit(*leaf), t)
+        # only the finite fields enter the graph: a zero cotangent times
+        # the NaN parallax would be NaN
+        plain = torch.stack([fields[k] for k in rest])
+        out = osk.orbit_solve_forward_cuda(elems, t)
+        if not (bool(torch.isnan(out[sky]).all()) and bool(torch.isfinite(out[rest]).all())):
+            raise AssertionError(f"KepOrbit forward: wrong NaN pattern in {dtype}")
+        rng = np.random.default_rng(4)
+        g = torch.as_tensor(rng.standard_normal(tuple(out.shape)), dtype=dtype, device="cuda")
+        g[rest] /= plain.detach().abs().amax(dim=(1, 2), keepdim=True)
+        (g_plain,) = torch.autograd.grad(plain, leaf, g[rest])
+        g_k = osk.orbit_solve_backward_cuda(elems, t, plain[0].detach().contiguous(), g, False)
+        worst_b = _worst_chain_error(g_k[:7], g_plain)
+        log(f"orbit_solve KepOrbit ({chains}, {N_EPOCHS}) {dtype}: NaN sky fields; backward worst "
+            f"chain {worst_b:.3e} (tol {BWD_TOL[dtype]:.0e}), plx row max |g| "
+            f"{float(g_k[7].abs().max()):.1e}")
+        if not (worst_b <= BWD_TOL[dtype] and float(g_k[7].abs().max()) == 0.0):
+            raise AssertionError(f"KepOrbit backward disagrees with autograd in {dtype}")
+    return res
 
 
 def build_model(ot, table, **model_kw):
@@ -239,20 +471,23 @@ def reference_phase(ot, table, model):
         raise AssertionError("float32 GPU ln_post disagrees with the float64 CPU model")
 
 
-def main_path_phase(ot, kk, chains, adaptation, iterations) -> dict:
+def main_path_phase(ot, kk, osk, chains, adaptation, iterations) -> dict:
     table = bench_table(ot)
     model = build_model(ot, table, device="cuda", dtype=torch.float32)
     reference_phase(ot, table, model)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    kk.launches = 0
+    kk.launches = osk.launches_fwd = osk.launches_bwd = 0
+    kk.launch_shapes.clear()
     t0 = time.perf_counter()
     chain = ot.octofit(model, chains=chains, adaptation=adaptation,
                        iterations=iterations, generator=gen, verbosity=1)
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
-    launches = kk.launches
+    launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
+                "orbit_solve_bwd": osk.launches_bwd}
+    kepler_shapes = dict(kk.launch_shapes)
     t_sampling = chain.info["sampling_time_s"]
     t_init = t_total - t_sampling
     n_evals = chain.info["n_grad_evals"]
@@ -273,48 +508,225 @@ def main_path_phase(ot, kk, chains, adaptation, iterations) -> dict:
         f"({t_sampling / (n_evals * chains) * 1e9:.1f} ns per chain-gradient)")
     log(f"  min rank-normalized ESS {ess_min:.1f}, max split-R-hat {rhat_max:.5f}, "
         f"ESS/s {ess_min / t_sampling:.1f}")
-    log(f"  b_a median {med:.5f}, sd {sd:.5f} (true 7.0); Kepler kernel launches {launches}")
+    log(f"  b_a median {med:.5f}, sd {sd:.5f} (true 7.0)")
+    log(f"  kernel launches: {launches}; kepler_solve by shape: {kepler_shapes}")
     log(f"  peak device memory of the main path {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    if launches == 0:
-        raise AssertionError("the main path never launched the Kepler kernel")
+    if launches["kepler_solve"] == 0:
+        raise AssertionError("the Laplace step never launched the standalone Kepler kernel")
+    if launches["orbit_solve_fwd"] == 0 or launches["orbit_solve_bwd"] == 0:
+        raise AssertionError("the main path never launched the fused orbit-solve kernels")
     if not finite:
         raise AssertionError("non-finite draws")
     if not rhat_max < 1.05:
         raise AssertionError(f"max split-R-hat {rhat_max} >= 1.05")
     if not abs(med - 7.0) <= 5 * sd:
         raise AssertionError(f"b_a median {med} is more than 5 sd ({sd}) from 7.0")
-    return {"launches": launches}
+    return {"launches": launches, "kepler_shapes": kepler_shapes, "model": model,
+            "chain": chain, "table": table}
+
+
+def kepler_path_phase(kk, kepler_mod, shapes) -> dict:
+    """The standalone Kepler kernel against its twin at every shape the
+    main path launched it with, through `kepler_solver` as that path calls
+    it: M contiguous, one eccentricity per chain expanded over the epochs
+    (the Function makes it contiguous). 64 draws per shape and precision,
+    the first with e = 0, the second with e = 0.99, the third with M = 0
+    and +-pi among its entries; then both are timed at that shape."""
+    res = {}
+    for shape in sorted(shapes, key=lambda s: int(np.prod(s))):
+        n = int(np.prod(shape))
+        for dtype in (torch.float32, torch.float64):
+            rng = np.random.default_rng(6)
+            worst = 0.0
+            for trial in range(64):
+                M = rng.uniform(-50.0, 50.0, shape)
+                e_row = rng.uniform(0.0, 0.99, shape[:-1] + (1,) if shape else ())
+                if trial < 2:
+                    e_row = np.full_like(e_row, (0.0, 0.99)[trial])
+                if trial == 2:
+                    M.reshape(-1)[:3] = (0.0, np.pi, -np.pi)[: M.size]
+                M = torch.as_tensor(M, dtype=dtype, device="cuda")
+                e = torch.as_tensor(e_row, dtype=dtype, device="cuda").expand(shape)
+                before = kk.launches
+                E_k = kepler_mod.kepler_solver(M, e)
+                if kk.launches != before + 1:
+                    raise AssertionError("kepler_solver on a CUDA tensor did not launch the kernel")
+                if not bool(torch.isfinite(E_k).all()):
+                    raise AssertionError(f"kernel returned non-finite E at {shape} in {dtype}")
+                worst = max(worst, float((E_k.double() - kepler_mod._markley(M, e).double()).abs().max()))
+            log(f"kernel vs twin at the main path's {shape} {dtype}, e expanded, 64 draws: "
+                f"max |dE| {worst:.3e} (tol {TOL[dtype]:.0e})")
+            if not worst <= TOL[dtype]:
+                raise AssertionError(f"kernel disagrees with its twin at {shape} in {dtype}: {worst:.3e}")
+            e = e.contiguous()
+            ms_t_a = _time_ms(lambda: kepler_mod._markley(M, e), 200)
+            ms_k_a = _time_ms(lambda: kk.kepler_solve_cuda(M, e), 200)
+            ms_k_b = _time_ms(lambda: kk.kepler_solve_cuda(M, e), 200)
+            ms_t_b = _time_ms(lambda: kepler_mod._markley(M, e), 200)
+            ms_k, ms_t = min(ms_k_a, ms_k_b), min(ms_t_a, ms_t_b)
+            log(f"timing {shape} {dtype}: kernel {ms_k:.4f} ms, twin {ms_t:.4f} ms "
+                f"(runs: kernel {ms_k_a:.4f}/{ms_k_b:.4f}, twin {ms_t_a:.4f}/{ms_t_b:.4f})")
+            res[(shape, dtype)] = dict(ms=ms_k, plain_ms=ms_t, err=worst, n=n)
+    return res
+
+
+def composed_ln_post_and_grad(model, theta):
+    """`model.ln_post_and_grad` through the composed orbit solve."""
+    theta = theta.detach().requires_grad_(True)
+    lp = model.ln_post(theta, fused=False)
+    (g,) = torch.autograd.grad(lp.sum(), theta)
+    return lp.detach(), g
+
+
+# Fused against composed gradients in float32, relative to each draw's
+# largest entry: three times the one reading this seeded run has given on
+# an NVIDIA H100 80GB HBM3 (8.641e-4). The gradient sums 24 residuals
+# times position derivatives that cancel, each at an E that differs by
+# about 1e-6 rad between the paths.
+FUSED_GRAD_TOL = 3e-3
+
+
+def _ln_post_difference_bound(ot, model, theta, table):
+    """Per draw, the most that the fused and the composed ln_post may
+    differ, from the two paths' own model positions at these draws. The
+    priors see the same numbers on both paths; the likelihood is
+    -1/2 sum (r / sigma)^2 with r = data - model, so a model position that
+    moves by d moves it by (r d - d^2 / 2) / sigma^2 exactly, at most
+    (|r| |d| + d^2 / 2) / sigma^2. Evaluated in float64. Returns the bound
+    (one per draw) and the largest |d| in mas."""
+    with torch.no_grad():
+        (orbit,) = model.construct_orbits(model.arr2nt(model.invlink(theta)))
+        fused = ot.orbitsolve(orbit, model._epochs_t)
+        composed = ot.orbitsolve(orbit, model._epochs_t, fused=False)
+    bound, d_max = 0.0, 0.0
+    for data, sigma, f, c in (("ra", "σ_ra", fused.raoff_mas, composed.raoff_mas),
+                              ("dec", "σ_dec", fused.decoff_mas, composed.decoff_mas)):
+        d = (f.double() - c.double()).abs()
+        r = (torch.as_tensor(table[data], device=d.device) - c.double()).abs()
+        s2 = torch.as_tensor(table[sigma], device=d.device) ** 2
+        bound = bound + ((r * d + 0.5 * d * d) / s2).sum(dim=-1)
+        d_max = max(d_max, float(d.max()))
+    return bound, d_max
+
+
+def fused_vs_composed_phase(ot, model, chain, table, chains: int) -> None:
+    """One batched gradient evaluation at `chains` posterior draws through
+    the fused kernels and through the composed path, in turns inside this
+    one process: device time (CUDA events) and host wall time."""
+    names = model.parameter_names
+    nat = np.stack([chain[n][:, -1] for n in names], axis=-1)[:chains]
+    theta = model.link(model.tensor(nat))
+
+    def composed():
+        return composed_ln_post_and_grad(model, theta)
+
+    def fused():
+        return model.ln_post_and_grad(theta)
+
+    (lp_c, g_c), (lp_f, g_f) = composed(), fused()
+    # ln_post: each draw against its own bound, plus 64 float32 ulps of
+    # |ln_post| for the roundings of the likelihood's and the sum's own
+    # arithmetic (about 40 terms of magnitude up to |ln_post|)
+    bound, d_pos = _ln_post_difference_bound(ot, model, theta, table)
+    tol_lp = bound + 64 * torch.finfo(torch.float32).eps * lp_c.double().abs()
+    d_lp = (lp_c.double() - lp_f.double()).abs()
+    worst = int((d_lp / tol_lp).argmax())
+    d_g = float(((g_c - g_f).abs().amax(dim=1) / g_c.abs().amax(dim=1).clamp(min=1.0)).max())
+    log(f"fused vs composed at {len(theta)} posterior draws: max |d ln_post| {float(d_lp.max()):.3e}; "
+        f"worst draw {float(d_lp[worst]):.3e} against its bound {float(tol_lp[worst]):.3e} "
+        f"({float(d_lp[worst] / tol_lp[worst]):.3f} of it; the paths' positions differ by at most "
+        f"{d_pos:.3e} mas); max relative gradient difference {d_g:.3e} (tol {FUSED_GRAD_TOL:.0e})")
+    if not (bool((d_lp <= tol_lp).all()) and d_g <= FUSED_GRAD_TOL):
+        raise AssertionError("fused and composed ln_post_and_grad disagree")
+
+    runs = [(name, *(1e3 * ms for ms in _time_both(fn, 30))) for name, fn in
+            (("composed", composed), ("fused", fused), ("fused", fused), ("composed", composed))]
+    for name, dev_us, host_us in runs:
+        log(f"  {name}: {dev_us:.1f} us per evaluation by CUDA events, {host_us:.1f} us by the host clock")
+    best = {name: min(r[2] for r in runs if r[0] == name) for name in ("composed", "fused")}
+    log(f"  fused / composed, best of two each, host clock: {best['fused']:.1f} / "
+        f"{best['composed']:.1f} us = {best['fused'] / best['composed']:.3f}")
 
 
 def main() -> int:
     name, _ = device_phase()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import octofitter_tpu_torch as ot
+    from octofitter_tpu_torch.orbits import elements
     from octofitter_tpu_torch.orbits import kepler as kepler_mod
     from octofitter_tpu_torch.orbits.kernels import kepler as kk
+    from octofitter_tpu_torch.orbits.kernels import orbit_solve as osk
 
     # full float32 in matrix products and convolutions (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_phase(kk)
+    build_phase([kk.SOURCE, osk.SOURCE])
     kres = kernel_phase(kk, kepler_mod._markley, CHAINS)
-    launches = main_path_phase(ot, kk, CHAINS, ADAPTATION, ITERATIONS)["launches"]
+    ores = orbit_phase(osk, elements, CHAINS)
+    main = main_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
+    pres = kepler_path_phase(kk, kepler_mod, main["kepler_shapes"])
+    fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
 
-    ms_k, ms_t = kres["timing"][(f"({CHAINS}, {N_EPOCHS})", torch.float32)]
-    ms_k23, ms_t23 = kres["timing"][("2^23", torch.float32)]
-    print(json.dumps({"kernels": [{
-        "name": "kepler_solve",
-        "route": "cuda",
-        "source": "octofitter_tpu_torch/orbits/kernels/csrc/kepler.cu",
-        "replaces": "octofitter_tpu/orbits/pallas_kepler.py:103",
-        "launches": launches,
-        "max_abs_err": kres["errs"][torch.float32],
-        "max_abs_err_f64": kres["errs"][torch.float64],
-        "ms": ms_k,
-        "plain_ms": ms_t,
-        "ms_2e23": ms_k23,
-        "plain_ms_2e23": ms_t23,
-    }]}), flush=True)
+    f32 = torch.float32
+    small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
+    n_small = CHAINS * N_EPOCHS
+
+    def fwd_bound(b, t):
+        return bound_ms(4 * (8 * b + t + 14 * b * t), OPS_ORBIT_FWD * b * t, f32)
+
+    def bwd_bound(b, t):  # reads the elements, the epochs, E and the cotangent
+        return bound_ms(4 * (8 * b + t + 15 * b * t + 8 * b), OPS_ORBIT_BWD * b * t, f32)
+
+    # the standalone kernel's row is at the largest shape the main path
+    # launched it with (the Laplace step's); the composed path's shape,
+    # which only this script's comparisons run, goes under its own keys
+    path_shape = max(main["kepler_shapes"], key=lambda s: int(np.prod(s)))
+    path_row = pres[(path_shape, f32)]
+    path_row["err_over_tol"] = path_row["err"] / TOL[f32]
+    kernels = []
+    for kname, source, replaces, shape, row, row_big, bnd, bnd_big in (
+        ("kepler_solve", "kepler.cu", "octofitter_tpu/orbits/pallas_kepler.py:103",
+         str(path_shape), path_row, dict(zip(("ms", "plain_ms"), kres["timing"][("2^23", f32)])),
+         bound_ms(12 * path_row["n"], OPS_KEPLER * path_row["n"], f32),
+         bound_ms(12 * 2**23, OPS_KEPLER * 2**23, f32)),
+        ("orbit_solve_fwd", "orbit_solve.cu", "octofitter_tpu/orbits/pallas_kepler.py:103",
+         small, ores["fwd"][(small, f32)], ores["fwd"][(big, f32)],
+         fwd_bound(CHAINS, N_EPOCHS), fwd_bound(BIG_CHAINS, BIG_EPOCHS)),
+        ("orbit_solve_bwd", "orbit_solve.cu", "octofitter_tpu/orbits/kepler.py:67",
+         small, ores["bwd"][(small, f32)], ores["bwd"][(big, f32)],
+         bwd_bound(CHAINS, N_EPOCHS), bwd_bound(BIG_CHAINS, BIG_EPOCHS)),
+    ):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"octofitter_tpu_torch/orbits/kernels/csrc/{source}",
+            "replaces": replaces,
+            "launches": main["launches"][kname],
+            "max_abs_err": row["err"],
+            "max_err_over_tol": row.get("err_over_tol"),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            "library_ms": None,  # no single PyTorch call computes this function
+            "shape": shape,
+            "large_shape": "2^23" if kname == "kepler_solve" else big,
+            "large_ms": row_big["ms"],
+            "large_plain_ms": row_big["plain_ms"],
+            "large_bound_ms": bnd_big[0],
+            "large_bound_by": bnd_big[1],
+        })
+    composed_ms, composed_plain_ms = kres["timing"][(small, f32)]
+    kernels[0].update({
+        "max_abs_err_f64": pres[(path_shape, torch.float64)]["err"],
+        "launch_shapes": {str(s): k for s, k in main["kepler_shapes"].items()},
+        "composed_shape": small,
+        "composed_max_abs_err": kres["errs"][f32],
+        "composed_ms": composed_ms,
+        "composed_plain_ms": composed_plain_ms,
+        "composed_bound_ms": bound_ms(12 * n_small, OPS_KEPLER * n_small, f32)[0],
+    })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

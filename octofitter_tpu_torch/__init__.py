@@ -4,9 +4,11 @@ The same model-building API as the JAX package (`Planet`, `System`,
 `UniformCircular`, `PlanetRelAstromObs`, `LogDensityModel`,
 `theta_at_epoch_to_tperi`, `octofit`, `Chains`), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
-dtype of every tensor the model makes; on a CUDA device the Kepler solve
-runs as a hand-written CUDA kernel (`orbits/kernels/csrc/kepler.cu`),
-built with nvcc at first use. This package never imports JAX.
+dtype of every tensor the model makes. The device is the GPU unless the
+caller says `device="cpu"`. On a CUDA device the orbit solve runs as
+hand-written CUDA kernels (`orbits/kernels/csrc/orbit_solve.cu`, forward
+and backward, and the standalone Kepler solve `kepler.cu`), built with
+nvcc at first use. This package never imports JAX.
 """
 
 from . import constants

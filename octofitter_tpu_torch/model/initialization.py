@@ -8,12 +8,15 @@ PyTorch port of `octofitter_tpu/model/initialization.py`. Four stages:
      `torch.optim.Adam` over the (n_multistart, D) tensor of starts. Adam
      is elementwise, so this is n_multistart independent optimizations;
      `CosineAnnealingLR(eta_min=0.1*0.01)` matches the JAX package's
-     `optax.cosine_decay_schedule(0.1, n, alpha=0.01)`;
+     `optax.cosine_decay_schedule(0.1, n, alpha=0.01)`; its gradients
+     come through the fused orbit solve;
   3. a host-side scipy L-BFGS-B polish of the best candidate behind a
      torch value-and-grad;
-  4. a Laplace approximation at the mode (`torch.func.hessian`, with the
-     eigenvalues clipped positive): draws from N(mode, H^{-1}) become the
-     starting points and H^{-1} seeds the dense metric.
+  4. a Laplace approximation at the mode (`torch.func.hessian` of the
+     composed `ln_post`, since the fused orbit solve has first
+     derivatives only; the eigenvalues are clipped positive): draws from
+     N(mode, H^{-1}) become the starting points and H^{-1} seeds the dense
+     metric.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def laplace(model, theta_star):
     # evaluated with a chain axis of 1: under forward-mode AD a 0-d
     # parameter combined with a Python scalar promotes a float32 tangent
     # to float64, which then clashes with the float32 primal
-    H = torch.func.hessian(lambda th: -model.ln_post(th[None, :])[0])(model.tensor(theta_star))
+    H = torch.func.hessian(lambda th: -model.ln_post(th[None, :], fused=False)[0])(
+        model.tensor(theta_star))
     H = H.detach().cpu().numpy().astype(np.float64)
     H = 0.5 * (H + H.T)
     evals, evecs = np.linalg.eigh(H)

@@ -15,6 +15,12 @@ The chain axis is written out: `ln_post(Theta)` maps (C, D) to (C,), and
 gives each chain its own gradient because chains are independent.
 -inf gating is branch-free (`torch.where`). Every tensor the model makes
 carries the model's `device` and `dtype`.
+
+`ln_post(theta_t, fused=...)` chooses how the orbits are solved
+(`orbits.orbitsolve`): the fused orbit-solve Function, first derivatives
+only (the default, so `ln_post_and_grad`, `prior_search` and the multistart
+optimizer run it), or with `fused=False` composed torch ops, differentiable
+to any order, which the Laplace step's `torch.func.hessian` asks for.
 """
 
 from __future__ import annotations
@@ -48,10 +54,19 @@ class LogDensityModel:
     Attributes mirroring the reference (`logdensitymodel.jl:5-24`):
       D, ln_post(theta_t), ln_post_and_grad(theta_t), link, invlink,
       arr2nt, sample_priors, starting_points.
+
+    device: where the model's tensors live and its kernels run. The
+    default is the GPU; with no CUDA device the constructor raises, and a
+    caller who wants the CPU says `device="cpu"`.
+    dtype: float64 by default. Epochs are MJD near 5e4 d, where one float32
+    step is 4e-3 d, and the parity tests against the reference run in
+    float64; the H100 runs float64 at half its float32 rate and this path
+    is bound by launches, not arithmetic. `dtype=torch.float32` is the
+    caller's choice for throughput at many chains, as the benchmark makes.
     """
 
     def __init__(self, system: System, verbosity: int = 1, *,
-                 device="cpu", dtype=torch.float64):
+                 device="cuda", dtype=torch.float64):
         self.device = torch.device(device)
         self.dtype = dtype
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -168,19 +183,24 @@ class LogDensityModel:
         """`x` as a tensor of the model's dtype on the model's device."""
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
-    def ln_post(self, theta_t):
-        """Log posterior in unconstrained space: (..., D) -> (...)."""
+    def ln_post(self, theta_t, *, fused=True):
+        """Log posterior in unconstrained space: (..., D) -> (...).
+
+        fused: solve the orbits with the fused Function (`orbitsolve`),
+        which gives first derivatives only; `fused=False` for a second
+        derivative or a `torch.func` transform."""
         theta_t = self.tensor(theta_t)
         finite_in = torch.isfinite(theta_t).all(dim=-1)
         theta = self.invlink(theta_t)
         lp = self.ln_prior(theta) + self._ln_abs_det_jacobian(theta_t)
-        ll = self.ln_like_nt(self.arr2nt(theta))
+        ll = self.ln_like_nt(self.arr2nt(theta), fused=fused)
         lpost = lp + ll
         return torch.where(finite_in & torch.isfinite(lpost), lpost, -torch.inf)
 
     def ln_post_and_grad(self, theta_t):
         """(ln_post(theta_t), its gradient); a leading chain axis gives
-        each chain its own gradient."""
+        each chain its own gradient. Solves the orbits with the fused
+        Function."""
         theta_t = self.tensor(theta_t).detach().requires_grad_(True)
         with torch.enable_grad():
             lp = self.ln_post(theta_t)
@@ -357,10 +377,10 @@ class LogDensityModel:
         epochs = self._epochs_t
         start_map = self._epoch_start
 
-        def ln_like_nt(theta_nt):
+        def ln_like_nt(theta_nt, *, fused=True):
             orbits = self.construct_orbits(theta_nt)
             if len(epochs) and len(orbits):
-                sols = tuple(orbitsolve(o, epochs) for o in orbits)
+                sols = tuple(orbitsolve(o, epochs, fused=fused) for o in orbits)
             else:
                 sols = tuple(None for _ in orbits)
 

@@ -14,6 +14,15 @@ are the same (see that module's docstring):
 The chain axis is written out: every element field is a tensor of one
 batch shape B (``()`` for one orbit, ``(C,)`` for C chains), and
 ``orbitsolve(elem, t)`` returns fields of shape ``B + t.shape``.
+
+``orbitsolve`` has two paths for a `KepOrbit` or `VisualOrbit`, chosen by
+its ``fused`` argument. The fused path, the default, is the `_OrbitSolve`
+Function: one kernel forward and one backward on a CUDA tensor
+(`kernels/csrc/orbit_solve.cu`), their plain versions on a CPU tensor,
+first derivatives only. The composed path (``fused=False``) is plain torch
+ops around `kepler_solver` (the standalone Kepler kernel on a CUDA tensor)
+and can be differentiated to any order and under `torch.func`; the Laplace
+step's Hessian asks for it.
 """
 
 from __future__ import annotations
@@ -23,8 +32,11 @@ import math
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from ..constants import AUDAY_TO_MS, JULIAN_YEAR_DAYS, KEPLER_YEAR_DAYS
 from .kepler import kepler_solver
+from .kernels.orbit_solve import orbit_solve_backward_cuda, orbit_solve_forward_cuda
 
 
 def _tensor(x):
@@ -263,35 +275,229 @@ def _solve_common(elem, t, a, e):
     return EA, nu, r, X, Y, VX, VY
 
 
-def orbitsolve(elem, t):
+def _kep_visual_fields(elem, t):
+    """The 14 solution fields of a KepOrbit or VisualOrbit, composed of
+    plain torch ops around `kepler_solver`. A KepOrbit has no parallax:
+    its four sky fields are NaN."""
+    EA, nu, r, X, Y, VX, VY = _solve_common(elem, t, elem.a, elem.e)
+    A, B, F, G = (_per_epoch(x, t) for x in _thiele_innes_unit(elem))
+    sw = _per_epoch(torch.sin(elem.omega), t)
+    cw = _per_epoch(torch.cos(elem.omega), t)
+    si = _per_epoch(torch.sin(elem.i), t)
+    posx = B * X + G * Y
+    posy = A * X + F * Y
+    posz = si * (sw * X + cw * Y)
+    vx = B * VX + G * VY
+    vy = A * VX + F * VY
+    vz = si * (sw * VX + cw * VY)
+    if isinstance(elem, VisualOrbit):
+        plx = _per_epoch(elem.plx, t)
+    else:
+        plx = torch.full_like(X, math.nan)
+    raoff = posx * plx
+    decoff = posy * plx
+    pmra = vx * plx * JULIAN_YEAR_DAYS
+    pmdec = vy * plx * JULIAN_YEAR_DAYS
+    radvel = vz * AUDAY_TO_MS
+    return EA, nu, r, posx, posy, posz, vx, vy, vz, raoff, decoff, pmra, pmdec, radvel
+
+
+# rows of the fused path's (8, B) element tensor (a KepOrbit's plx row is
+# NaN) and of its (14, B, T) solution tensor, the order `_kep_visual_fields`
+# returns
+_ELEMENT_ROWS = ("a", "e", "i", "omega", "Omega", "tp", "M", "plx")
+FIELD_ROWS = ("EA", "nu", "r", "posx", "posy", "posz", "vx", "vy", "vz", "raoff_mas",
+              "decoff_mas", "pmra_masyr", "pmdec_masyr", "radvel_ms")
+
+
+def _orbit_solve_backward_plain(elems, t, EA, g, has_plx):
+    """Plain PyTorch version of the backward kernel, line by line: the
+    gradient with respect to `elems` (8, B) of sum(g * fields), for the
+    cotangent g (14, B, T) of the fields at the eccentric anomaly EA
+    (B, T). With `has_plx` false the four sky fields do not contribute."""
+    a, e, inc, omega, Omega, tp, mass, plx = (x[:, None] for x in elems)
+    n = 2 * math.pi / (torch.sqrt(a**3 / mass) * KEPLER_YEAR_DAYS)
+    sq = torch.sqrt(1 - e * e)
+    si, ci = torch.sin(inc), torch.cos(inc)
+    sw, cw = torch.sin(omega), torch.cos(omega)
+    sO, cO = torch.sin(Omega), torch.cos(Omega)
+    A = cO * cw - sO * sw * ci
+    B = sO * cw + cO * sw * ci
+    F = -cO * sw - sO * cw * ci
+    G = -sO * sw + cO * cw * ci
+    # the orbit-plane state at EA
+    dt = t - tp
+    sE, cE = torch.sin(EA), torch.cos(EA)
+    f1 = 1 - e * cE
+    X = a * (cE - e)
+    Y = a * sq * sE
+    Edot = n / f1
+    VX = -a * sE * Edot
+    VY = a * sq * cE * Edot
+
+    g_EA, g_nu, g_r, g_px, g_py, g_pz, g_vx, g_vy = g[:8]
+    g_vz = g[8] + g[13] * AUDAY_TO_MS
+    s_plx = torch.zeros_like(EA)
+    if has_plx:
+        # raoff = posx plx, decoff = posy plx, pmra = vx plx yr, pmdec too
+        g_ra, g_dec = g[9], g[10]
+        g_pmra, g_pmdec = g[11] * JULIAN_YEAR_DAYS, g[12] * JULIAN_YEAR_DAYS
+        posx = B * X + G * Y
+        posy = A * X + F * Y
+        vx = B * VX + G * VY
+        vy = A * VX + F * VY
+        s_plx = g_ra * posx + g_dec * posy + g_pmra * vx + g_pmdec * vy
+        g_px = g_px + g_ra * plx
+        g_py = g_py + g_dec * plx
+        g_vx = g_vx + g_pmra * plx
+        g_vy = g_vy + g_pmdec * plx
+    # projections: pos = (B X + G Y, A X + F Y, si (sw X + cw Y)), v alike
+    zs, zc = si * sw, si * cw
+    g_X = B * g_px + A * g_py + zs * g_pz
+    g_Y = G * g_px + F * g_py + zc * g_pz
+    g_VX = B * g_vx + A * g_vy + zs * g_vz
+    g_VY = G * g_vx + F * g_vy + zc * g_vz
+    s_A = X * g_py + VX * g_vy
+    s_B = X * g_px + VX * g_vx
+    s_F = Y * g_py + VY * g_vy
+    s_G = Y * g_px + VY * g_vx
+    s_si = g_pz * (sw * X + cw * Y) + g_vz * (sw * VX + cw * VY)
+    s_sw = si * (g_pz * X + g_vz * VX)
+    s_cw = si * (g_pz * Y + g_vz * VY)
+    # nu = atan2(Y, X), written as autograd writes it
+    inv_r2 = 1 / (X * X + Y * Y)
+    g_X = g_X + g_nu * -Y * inv_r2
+    g_Y = g_Y + g_nu * X * inv_r2
+    # r = a f1
+    s_a = g_r * f1
+    g_f1 = g_r * a
+    # X = a (cE - e)
+    s_a = s_a + g_X * (cE - e)
+    g_cE = a * g_X
+    s_e = -a * g_X
+    # Y = a sq sE
+    s_a = s_a + g_Y * sq * sE
+    s_sq = g_Y * a * sE
+    g_sE = g_Y * a * sq
+    # VX = -a sE Edot
+    s_a = s_a - g_VX * sE * Edot
+    g_sE = g_sE - g_VX * a * Edot
+    g_Edot = -g_VX * a * sE
+    # VY = a sq cE Edot
+    s_a = s_a + g_VY * sq * cE * Edot
+    s_sq = s_sq + g_VY * a * cE * Edot
+    g_cE = g_cE + g_VY * a * sq * Edot
+    g_Edot = g_Edot + g_VY * a * sq * cE
+    # Edot = n / f1
+    inv_f1 = 1 / f1
+    s_n = g_Edot * inv_f1
+    g_f1 = g_f1 - g_Edot * Edot * inv_f1
+    # f1 = 1 - e cE
+    s_e = s_e - cE * g_f1
+    g_cE = g_cE - e * g_f1
+    # sE = sin E, cE = cos E
+    g_E = g_EA + g_sE * cE - g_cE * sE
+    # E - e sin E = MA, implicitly: dE = (dMA + sin E de) / f1
+    g_MA = g_E * inv_f1
+    s_e = s_e + g_MA * sE
+    # MA = n (t - tp)
+    s_n = s_n + g_MA * dt
+    s_MA = g_MA
+
+    # sum over epochs, then the chain's constants back to its elements
+    (s_a, s_e, s_sq, s_n, s_MA, s_plx, s_A, s_B, s_F, s_G, s_si, s_sw, s_cw) = (
+        x.sum(dim=-1) for x in
+        (s_a, s_e, s_sq, s_n, s_MA, s_plx, s_A, s_B, s_F, s_G, s_si, s_sw, s_cw))
+    a, e, mass, n, sq, si, ci, sw, cw, sO, cO = (
+        x[:, 0] for x in (a, e, mass, n, sq, si, ci, sw, cw, sO, cO))
+    # sq = sqrt(1 - e^2); n = 2 pi / (year sqrt(a^3 / mass))
+    g_e = s_e - s_sq * e / sq
+    g_a = s_a - 1.5 * s_n * n / a
+    g_mass = 0.5 * s_n * n / mass
+    g_tp = -n * s_MA
+    # A = cO cw - sO sw ci, B = sO cw + cO sw ci,
+    # F = -cO sw - sO cw ci, G = -sO sw + cO cw ci
+    g_cw = s_cw + s_A * cO + s_B * sO - s_F * sO * ci + s_G * cO * ci
+    g_sw = s_sw - s_A * sO * ci + s_B * cO * ci - s_F * cO - s_G * sO
+    g_cO = s_A * cw + s_B * sw * ci - s_F * sw + s_G * cw * ci
+    g_sO = -s_A * sw * ci + s_B * cw - s_F * cw * ci - s_G * sw
+    g_ci = -s_A * sO * sw + s_B * cO * sw - s_F * sO * cw + s_G * cO * cw
+    g_i = s_si * ci - g_ci * si
+    g_omega = g_sw * cw - g_cw * sw
+    g_Omega = g_sO * cO - g_cO * sO
+    return torch.stack([g_a, g_e, g_i, g_omega, g_Omega, g_tp, g_mass, s_plx])
+
+
+class _OrbitSolve(torch.autograd.Function):
+    """fields (14, B, T) of elems (8, B) and epochs t (T,), in one kernel
+    forward and one backward for CUDA tensors and by the plain versions
+    for CPU tensors. First derivatives with respect to `elems` only: a
+    second derivative, or a `torch.func` transform, raises."""
+
+    @staticmethod
+    def forward(ctx, elems, t, has_plx):
+        if elems.device.type == "cuda":
+            out = orbit_solve_forward_cuda(elems, t)
+        elif elems.device.type == "cpu":
+            elem = VisualOrbit(*elems) if has_plx else KepOrbit(*elems[:7])
+            out = torch.stack(_kep_visual_fields(elem, t))
+        else:
+            raise ValueError(f"orbitsolve has no fused kernel for device {elems.device}")
+        ctx.save_for_backward(elems, t, out)
+        ctx.has_plx = has_plx
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        elems, t, out = ctx.saved_tensors
+        if elems.device.type == "cuda":
+            gelems = orbit_solve_backward_cuda(elems, t, out[0], g.contiguous(), ctx.has_plx)
+        else:
+            gelems = _orbit_solve_backward_plain(elems, t, out[0], g, ctx.has_plx)
+        return gelems, None, None
+
+
+def _kep_visual_fields_fused(elem, t):
+    """The 14 solution fields through `_OrbitSolve`: the element fields
+    are broadcast to one batch shape and stacked into (8, B), the epochs
+    flattened to (T,)."""
+    if t.requires_grad:
+        raise ValueError("the fused orbit solve has no gradient with respect to the "
+                         "epochs; use orbitsolve(..., fused=False)")
+    has_plx = isinstance(elem, VisualOrbit)
+    rows = list(torch.broadcast_tensors(
+        *(getattr(elem, name) for name in _ELEMENT_ROWS[: 8 if has_plx else 7])))
+    if not has_plx:
+        rows.append(torch.full_like(rows[0], math.nan))
+    batch = rows[0].shape
+    elems = torch.stack([x.reshape(-1) for x in rows])
+    out = _OrbitSolve.apply(elems, t.reshape(-1).contiguous(), has_plx)
+    out = out.reshape((out.shape[0],) + batch + t.shape)
+    # indexed one by one, not unbound: autograd then fills the cotangent
+    # from the fields in use alone, where unbind's backward stacks all 14
+    return tuple(out[k] for k in range(out.shape[0]))
+
+
+def orbitsolve(elem, t, *, fused=True):
     """Solve the orbit at epoch(s) t [MJD] -> OrbitSolution.
 
     t may be the full packed epoch array, giving one vectorized solution
-    for every chain and epoch at once."""
+    for every chain and epoch at once.
+
+    fused: solve a KepOrbit or VisualOrbit with the fused Function (one
+    kernel forward, one backward on a CUDA tensor). It gives first
+    derivatives with respect to the elements only and raises on a second
+    derivative, under `torch.func`, or for epochs that require a gradient:
+    `fused=False` asks for the composed torch ops, which have all of these.
+    The other element types have only the composed path."""
     ref = elem.e
     t = torch.as_tensor(t, dtype=ref.dtype, device=ref.device)
 
     if isinstance(elem, (KepOrbit, VisualOrbit)):
-        EA, nu, r, X, Y, VX, VY = _solve_common(elem, t, elem.a, elem.e)
-        A, B, F, G = (_per_epoch(x, t) for x in _thiele_innes_unit(elem))
-        sw = _per_epoch(torch.sin(elem.omega), t)
-        cw = _per_epoch(torch.cos(elem.omega), t)
-        si = _per_epoch(torch.sin(elem.i), t)
-        posx = B * X + G * Y
-        posy = A * X + F * Y
-        posz = si * (sw * X + cw * Y)
-        vx = B * VX + G * VY
-        vy = A * VX + F * VY
-        vz = si * (sw * VX + cw * VY)
-        if isinstance(elem, VisualOrbit):
-            plx = _per_epoch(elem.plx, t)
-        else:
-            plx = torch.full_like(X, math.nan)
-        raoff = posx * plx
-        decoff = posy * plx
-        pmra = vx * plx * JULIAN_YEAR_DAYS
-        pmdec = vy * plx * JULIAN_YEAR_DAYS
-        radvel = vz * AUDAY_TO_MS
+        solve = _kep_visual_fields_fused if fused else _kep_visual_fields
+        (EA, nu, r, posx, posy, posz, vx, vy, vz,
+         raoff, decoff, pmra, pmdec, radvel) = solve(elem, t)
 
     elif isinstance(elem, ThieleInnesOrbit):
         a = semimajoraxis(elem)

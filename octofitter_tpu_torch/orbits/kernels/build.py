@@ -3,9 +3,10 @@
 Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc`
 into its own shared library, which `ctypes` loads. The library goes into
 `octofitter_tpu_torch/_build/` (git-ignored) under a name keyed by a hash
-of the source and the flags, so a fresh checkout builds at first use and
-an edited source is rebuilt. Nothing is compiled when a module is
-imported: the first launch of a kernel builds it.
+of the source, the headers it includes from `csrc/` and the flags, so a
+fresh checkout builds at first use and an edited source or header is
+rebuilt. Nothing is compiled when a module is imported: the first launch
+of a kernel builds it.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -36,9 +39,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: a CUDA toolkit is needed to build the kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> list[Path]:
+    """`source` and every file it includes with `#include "..."`, directly
+    or through another such file (paths relative to the including file)."""
+    found, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / name.decode()).resolve())
+    return found
+
+
 def library_path(source: Path) -> Path:
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in source_files(source))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
@@ -65,6 +86,13 @@ def build(source: Path) -> tuple[Path, str]:
         )
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out, proc.stdout + proc.stderr
+
+
+def build_all(sources) -> list[tuple[Path, str]]:
+    """`build` every source, one nvcc process each, all started together."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max(len(sources), 1)) as pool:
+        return list(pool.map(build, sources))
 
 
 @functools.cache

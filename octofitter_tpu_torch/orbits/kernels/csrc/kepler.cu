@@ -1,103 +1,67 @@
-// Elliptic Kepler solve E - e sin E = M, one thread per element.
+// Elliptic Kepler solve E - e sin E = M over flat arrays.
 //
 // Replaces the TPU kernel octofitter_tpu/orbits/pallas_kepler.py:
-// kepler_solver_pallas (pl.pallas_call at :103). It computes what
-// octofitter_tpu/orbits/kepler.py:kepler_solver computes, element by
-// element:
-//   1. reduce M to [-pi, pi) with a floor-mod (the divisor's sign, as
-//      jnp.mod and torch.remainder take it), keeping the 2 pi offset and
-//      the sign of the reduced anomaly;
-//   2. the Markley (1995) cubic starter;
-//   3. a 5th-order correction;
-//   4. one Newton polish, then restore the sign and the offset.
+// kepler_solver_pallas (pl.pallas_call at :103); the solve itself is
+// kepler.cuh:kepler_E, shared with the fused orbit-solve kernel.
 //
-// What bounds it on Hopper: it is elementwise, about 40 flops and 3
-// transcendentals (cbrt, sincos, sincos) per element, and it reads and
-// writes 12 bytes per element in float32, 24 in float64. At the main
-// path's 49,152 elements (4096 chains x 12 epochs) it is launch-bound;
-// at millions of elements float32 is bound by the SFU/FMA pipes and
-// float64 by the H100's float64 rate. The design is the simplest that is
-// right: a grid-stride loop, coalesced loads, no shared memory. Two TPU
-// workarounds of the Pallas kernel are gone: CUDA has a correctly
-// rounded cbrt (the Pallas kernel emulated it with exp/log and a Newton
-// step), and the ragged edge is masked by the loop bound instead of
-// padding the input to (8k, 128) tiles.
+// What bounds it on Hopper: 12 bytes and about 90 arithmetic operations
+// per element in float32 (24 bytes in float64), so the bound is the bytes
+// moved; the kernel sits above it because of the instructions it issues
+// (kepler.cuh says which, and what was cut). At the sampler's 49,152
+// elements (4096 chains x 12 epochs) it is launch-bound. Each thread
+// takes 16 bytes of M and of e with one load each (4 float32 or 2 float64
+// elements), solves them as independent instruction streams, and writes
+// 16 bytes of E with one store; the ragged tail and arrays that are not
+// 16-byte aligned go element by element. Two TPU workarounds of the
+// Pallas kernel are gone: CUDA has a correctly rounded cbrt (the Pallas
+// kernel emulated it with exp/log and a Newton step), and the ragged edge
+// is masked by the loop bound instead of padding the input to (8k, 128)
+// tiles.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
 // Plain C entry points, loaded with ctypes; each returns the launch's
 // cudaGetLastError().
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "kepler.cuh"
 
-#define KEPLER_PI 3.14159265358979323846
-#define KEPLER_TWO_PI 6.28318530717958647692
-#define KEPLER_PI2 9.86960440108935861883  // pi^2
-
-template <typename T>
-__device__ __forceinline__ T floor_mod(T x, T y) {
-  // fmod is exact; move its result to the divisor's sign (y > 0 here).
-  T r = fmod(x, y);
-  return (r < T(0)) ? r + y : r;
-}
-
-template <typename T>
-__device__ __forceinline__ T markley(T M, T e) {
-  // M in [0, pi]
-  const T pi = T(KEPLER_PI), pi2 = T(KEPLER_PI2);
-  const T alpha = (T(3) * pi2 + T(1.6) * pi * (pi - M) / (T(1) + e)) /
-                  (pi2 - T(6));
-  const T d = T(3) * (T(1) - e) + alpha * e;
-  const T q = T(2) * alpha * d * (T(1) - e) - M * M;
-  const T r = T(3) * alpha * d * (d - T(1) + e) * M + M * M * M;
-  const T c = cbrt(fabs(r) + sqrt(q * q * q + r * r));
-  const T w = c * c;
-  const T E1 = (T(2) * r * w / (w * w + w * q + q * q) + M) / d;
-
-  T sE, cE;
-  sincos(E1, &sE, &cE);
-  const T f0 = E1 - e * sE - M;
-  const T f1 = T(1) - e * cE;
-  const T f2 = e * sE;
-  const T f3 = e * cE;
-  const T f4 = -f2;
-  const T d3 = -f0 / (f1 - f0 * f2 / (T(2) * f1));
-  const T d4 = -f0 / (f1 + d3 * f2 / T(2) + d3 * d3 * f3 / T(6));
-  const T d5 = -f0 / (f1 + d4 * f2 / T(2) + d4 * d4 * f3 / T(6) +
-                      d4 * d4 * d4 * f4 / T(24));
-  T E = E1 + d5;
-  // one Newton polish
-  T sN, cN;
-  sincos(E, &sN, &cN);
-  return E - (E - e * sN - M) / (T(1) - e * cN);
-}
-
-template <typename T>
+template <typename T, int N>
 __global__ void kepler_kernel(const T* __restrict__ M, const T* __restrict__ e,
                               T* __restrict__ E, int64_t n) {
-  const T pi = T(KEPLER_PI), two_pi = T(KEPLER_TWO_PI);
+  using P = Pack<T, N>;
+  const int64_t n_pack = n / N;
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = int64_t(blockDim.x) * gridDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T m = M[i];
-    const T Mr = floor_mod(m + pi, two_pi) - pi;
-    const T offset = m - Mr;
-    const T sgn = (Mr < T(0)) ? T(-1) : T(1);
-    E[i] = sgn * markley(fabs(Mr), e[i]) + offset;
+  for (int64_t i = tid; i < n_pack; i += stride) {
+    const P m = reinterpret_cast<const P*>(M)[i];
+    const P ecc = reinterpret_cast<const P*>(e)[i];
+    P out;
+#pragma unroll
+    for (int k = 0; k < N; ++k) out.v[k] = kepler_E(m.v[k], ecc.v[k]);
+    reinterpret_cast<P*>(E)[i] = out;
   }
+  // the n % N elements after the last whole pack (fewer than N <= stride)
+  const int64_t j = n_pack * N + tid;
+  if (j < n) E[j] = kepler_E(M[j], e[j]);
 }
 
 template <typename T>
 static cudaError_t launch(const T* M, const T* e, T* E, int64_t n,
                           cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
+  constexpr int N = 16 / sizeof(T);
+  const bool packed = aligned16(M) && aligned16(e) && aligned16(E);
   const int threads = 256;
   // Enough blocks to fill 132 SMs several times over; the grid-stride
   // loop covers the rest.
-  int64_t blocks = (n + threads - 1) / threads;
+  const int64_t work = packed ? (n + N - 1) / N : n;
+  int64_t blocks = (work + threads - 1) / threads;
   if (blocks > 132 * 32) blocks = 132 * 32;
-  kepler_kernel<T><<<int(blocks), threads, 0, stream>>>(M, e, E, n);
+  if (packed) {
+    kepler_kernel<T, N><<<int(blocks), threads, 0, stream>>>(M, e, E, n);
+  } else {
+    kepler_kernel<T, 1><<<int(blocks), threads, 0, stream>>>(M, e, E, n);
+  }
   return cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@ which `kepler_solver` calls for CPU tensors.
 
 `launches` counts the kernel's launches in this process; a run resets it
 to 0 and reads it afterwards to show that its path went through the
-kernel.
+kernel. `launch_shapes` counts the same launches by the shape of M, so
+that a run can hold the kernel against its twin at the shapes its path
+really gave it; a run clears it where it resets `launches`.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from pathlib import Path
 
 import torch
 
-from .build import build, load_library
+from .build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "kepler.cu"
 launches = 0
+launch_shapes: dict[tuple, int] = {}
 
 _ENTRY = {torch.float32: "kepler_solve_f32", torch.float64: "kepler_solve_f64"}
 
@@ -37,13 +40,6 @@ def _entry_points() -> dict:
         fn.restype = ctypes.c_int
         out[dtype] = fn
     return out
-
-
-def build_kernel() -> str:
-    """Compile the kernel now (if it is not built yet); return nvcc's log."""
-    _, log = build(SOURCE)
-    _entry_points()
-    return log
 
 
 def kepler_solve_cuda(M: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -71,4 +67,5 @@ def kepler_solve_cuda(M: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"Kepler kernel launch failed with CUDA error {err}")
     launches += 1
+    launch_shapes[tuple(M.shape)] = launch_shapes.get(tuple(M.shape), 0) + 1
     return E

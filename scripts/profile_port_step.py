@@ -8,7 +8,11 @@ initializes it, then:
 
 1. times one batched `ln_post_and_grad` (forward + backward over all
    chains) with CUDA events, against its forward alone;
-2. runs 20 ChEES transitions at 4096 chains under `torch.profiler` and prints the
+2. profiles 20 such evaluations through the fused orbit-solve kernels
+   and 20 through the composed path (`ln_post(..., fused=False)` and
+   autograd), and prints each path's device operations and device time
+   per evaluation;
+3. runs 20 ChEES transitions at 4096 chains under `torch.profiler` and prints the
    device time by kernel, the Kepler kernel's share, and the device's
    busy share of the profiled wall time. The profiler slows the host
    several-fold, so that share is a lower bound; the device time per
@@ -64,6 +68,35 @@ def main() -> int:
     print(f"ln_post_and_grad: {vg_dev:.3f} ms (events), {vg_host:.3f} ms host "
           f"({CHAINS} chains)")
 
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def device_rows(prof):
+        """The profile's device-side rows (kernels, copies) and the name of
+        their self-time attribute."""
+        events = list(prof.key_averages())
+        key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA], key
+
+    def composed(theta):
+        return chip_smoke.composed_ln_post_and_grad(model, theta)
+
+    for label, fn in (("fused", model.ln_post_and_grad), ("composed", composed)):
+        fn(Theta)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(STEPS):
+                fn(Theta)
+            torch.cuda.synchronize()
+        rows, key = device_rows(prof)
+        dev_ms = sum(getattr(e, key) for e in rows) / 1e3
+        n_ops = sum(e.count for e in rows if getattr(e, key) > 0)
+        orbit_ms = sum(getattr(e, key) for e in rows
+                       if "orbit_" in e.key or "kepler" in e.key.lower()) / 1e3
+        print(f"{label} evaluation, profiled x{STEPS}: {n_ops / STEPS:.0f} device ops, "
+              f"{dev_ms / STEPS:.3f} ms device time, of which the hand-written kernels "
+              f"{orbit_ms / STEPS * 1e3:.1f} us")
+
     lp, Grad = model.ln_post_and_grad(Theta)
     metric = metric_from_sigma(model.laplace_sigma)
     eps, T = 0.3, 1.2
@@ -71,7 +104,6 @@ def main() -> int:
         Theta, lp, Grad, _, _, _ = _chees_transition(
             model.ln_post_and_grad, Theta, lp, Grad, gen, eps, T, 0.5, metric, 1024)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n_evals = 0
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -83,25 +115,21 @@ def main() -> int:
             float(g)  # the per-step scalar read the sampler makes
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-
-    events = list(prof.key_averages())
-    key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    # device-side rows (kernels, copies); their self time is the device time
-    events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    events, key = device_rows(prof)
 
     def dev_us(e):
         return getattr(e, key)
 
     total_dev = sum(dev_us(e) for e in events) / 1e3
-    kepler = sum(dev_us(e) for e in events if "kepler" in e.key.lower()) / 1e3
+    kepler = sum(dev_us(e) for e in events
+                 if "orbit_" in e.key or "kepler" in e.key.lower()) / 1e3
     n_kernels = sum(e.count for e in events if dev_us(e) > 0)
     print(f"profiled {STEPS} transitions, {n_evals} batched gradient evals: "
           f"wall {wall_ms:.1f} ms, device busy {total_dev:.1f} ms "
           f"({100 * total_dev / wall_ms:.1f}% busy, {100 - 100 * total_dev / wall_ms:.1f}% idle)")
     print(f"  per batched eval: wall {wall_ms / n_evals:.3f} ms, device {total_dev / n_evals:.3f} ms, "
           f"{n_kernels / n_evals:.0f} device ops")
-    print(f"  Kepler kernel: {kepler:.3f} ms device ({100 * kepler / max(total_dev, 1e-9):.2f}% of device time)")
+    print(f"  hand-written kernels: {kepler:.3f} ms device ({100 * kepler / max(total_dev, 1e-9):.2f}% of device time)")
     print(f"  unprofiled: device {total_dev / n_evals:.3f} ms of a {vg_dev:.3f} ms evaluation "
           f"({100 * total_dev / n_evals / vg_dev:.1f}% busy)")
     print(prof.key_averages().table(sort_by=key, row_limit=25))

@@ -205,3 +205,14 @@ def test_kernel_matches_twin_on_gpu():
         torch.cuda.synchronize()
         err = (E_k.double() - E_t.double()).abs().cpu().numpy() / scale
         assert err.max() <= tol, (dtype, err.max())
+        # a view that starts one element in is not 16-byte aligned: the
+        # kernel then goes element by element, to the same bits
+        E_off = kepler_solver(Mt[1:], et[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(E_off, E_k[1:])
+        # the Laplace step's call: a (1, 12) mean anomaly and one
+        # eccentricity expanded over the epochs, made contiguous on the way
+        E_row = kepler_solver(Mt[:12][None, :], et[:1, None])
+        assert kk.launch_shapes.get((1, 12), 0) >= 1
+        assert torch.equal(E_row[0], kepler_solver(Mt[:12], et[:1].repeat(12)))
+        assert float((E_row - _markley(Mt[:12][None, :], et[:1, None])).abs().max()) <= tol

@@ -126,7 +126,7 @@ def jax_bench_model():
 
 @pytest.fixture(scope="module")
 def bench_pair():
-    return jax_bench_model(), build_bench(ot, bench_table())
+    return jax_bench_model(), build_bench(ot, bench_table(), device="cpu")
 
 
 def _prior_points(mj, mt, n=64, seed=1):
@@ -154,6 +154,15 @@ def _assert_lp_and_grad_match(mj, mt, pts_t):
     np.testing.assert_allclose(lp_t, lp_j, rtol=1e-10, atol=0)
     scale = np.abs(g_j).max(axis=1, keepdims=True)
     assert (np.abs(g_t - g_j) <= 1e-10 * scale).all(), np.abs(g_t - g_j).max()
+
+
+def test_default_device_is_the_gpu():
+    """A model built with no `device` goes to the GPU; where there is none
+    it raises, and never carries on on the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bench(ot, bench_table())
 
 
 def test_parameter_names_equal(bench_pair):
@@ -207,7 +216,7 @@ def test_hessian_matches_gradient_differences(bench_pair):
     truncation error near 1e-7 of the largest entry; bound 1e-6."""
     mj, mt = bench_pair
     x = torch.as_tensor(np.array(mj.link(mj.sample_priors(jax.random.PRNGKey(4)))))
-    H = torch.func.hessian(lambda th: mt.ln_post(th[None, :])[0])(x).numpy()
+    H = torch.func.hessian(lambda th: mt.ln_post(th[None, :], fused=False)[0])(x).numpy()
     h = 1e-5
     steps = torch.eye(mt.D, dtype=torch.float64) * h
     _, g = mt.ln_post_and_grad(torch.cat([x + steps, x - steps]))
@@ -269,7 +278,7 @@ def test_nuisance_likelihood_matches(branch):
     gradient at 64 prior draws, to 1e-10 relative."""
     table = dict(zip(("seppa", "radec"), _seppa_tables()))[branch]
     mj = build_nuisance(oc, table, _nuisance_vars(oc))
-    mt = build_nuisance(ot, table, _nuisance_vars(ot))
+    mt = build_nuisance(ot, table, _nuisance_vars(ot), device="cpu")
     assert mt.parameter_names == mj.parameter_names == [
         "b_astromna_northangle", "b_astromna_platescale", "b_astromna_jitter"]
     _, pts_t = _prior_points(mj, mt, seed=6)
@@ -284,7 +293,8 @@ def test_northangle_convention_in_port():
     nas = np.linspace(-0.2, 0.2, 81)
     argmax = {}
     for name, table in (("seppa", seppa), ("radec", radec)):
-        mt = build_nuisance(ot, table, dict(northangle=ot.distributions.Uniform(-0.5, 0.5)))
+        mt = build_nuisance(ot, table, dict(northangle=ot.distributions.Uniform(-0.5, 0.5)),
+                            device="cpu")
         with torch.no_grad():
             ll = mt.ln_like_nt(mt.arr2nt(torch.as_tensor(nas[:, None]))).numpy()
         argmax[name] = nas[np.argmax(ll)]

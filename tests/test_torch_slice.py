@@ -35,7 +35,7 @@ def initialized(table):
     """Both packages' models after their initialization pipelines, and
     their modes. The JAX run (mostly XLA compiling, which releases the
     GIL) overlaps the port's eager one; the two share no state."""
-    mj, mt = jax_bench_model(), build_bench(ot, table)
+    mj, mt = jax_bench_model(), build_bench(ot, table, device="cpu")
     with ThreadPoolExecutor(1) as pool:
         future_j = pool.submit(mj.initialize, jax.random.PRNGKey(0), verbosity=0, **INIT_SIZES)
         mode_t = mt.initialize(torch.Generator().manual_seed(0), verbosity=0, **INIT_SIZES)
@@ -83,7 +83,7 @@ def test_octofit_matches_jax_posterior(table, initialized):
     Monte-Carlo standard errors (sd / sqrt(ESS) from each run), and both
     runs have max split-R-hat < 1.05."""
     mj = initialized[0]
-    mt = build_bench(ot, table)
+    mt = build_bench(ot, table, device="cpu")
     load_jax_state(
         mt,
         parameter_names=mj.parameter_names,
