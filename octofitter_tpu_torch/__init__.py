@@ -1,8 +1,10 @@
 """octofitter_tpu_torch: the PyTorch + CUDA port of octofitter_tpu.
 
 The same model-building API as the JAX package (`Planet`, `System`,
-`UniformCircular`, `PlanetRelAstromObs`, `LogDensityModel`,
-`theta_at_epoch_to_tperi`, `octofit`, `Chains`), written in PyTorch.
+`UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
+likelihoods without Gaussian processes, `LogDensityModel`,
+`theta_at_epoch_to_tperi`, `octofit`, `Chains` and the diagnostics,
+`ess_rhat_batch_device` on the card among them), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -35,10 +37,34 @@ from .model import (
     theta_at_epoch_to_tperi,
     likelihoodname,
 )
-from .likelihoods import PlanetRelAstromObs, PlanetRelAstromLikelihood
+from .likelihoods import (
+    PlanetRelAstromObs,
+    PlanetRelAstromLikelihood,
+    HGCAInstantaneousObs,
+    HGCAInstantaneousLikelihood,
+    gaia_plx,
+)
+from . import rv
+from .rv import (
+    StarAbsoluteRVObs,
+    StarAbsoluteRVLikelihood,
+    MarginalizedStarAbsoluteRVObs,
+    MarginalizedStarAbsoluteRVLikelihood,
+    StarAbsoluteRVMarginLikelihood,
+    PlanetRelativeRVObs,
+    PlanetRelativeRVLikelihood,
+)
+from . import io
 from .config import OctofitterConfig, get_config, set_config
 from .samplers import octofit
-from .chains import Chains, ess_rhat, ess_rhat_batch, ess_tail, ess_tail_batch
+from .chains import (
+    Chains,
+    ess_rhat,
+    ess_rhat_batch,
+    ess_rhat_batch_device,
+    ess_tail,
+    ess_tail_batch,
+)
 from . import interop
 
 __version__ = "0.1.0"

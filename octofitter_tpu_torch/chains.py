@@ -2,7 +2,9 @@
 
 A copy of the numpy-only part of `octofitter_tpu/chains.py` (importing
 that package would import JAX); `flatten_params_batch` also takes
-tensors. The on-device `ess_rhat_batch_device` is not ported yet.
+tensors. `ess_rhat_batch_device` is the port of the JAX package's
+on-device diagnostics: the same rank-normalized ESS and split-R̂ as the
+numpy `ess_rhat_batch`, in torch on the card (or the CPU if asked).
 
 Equivalent of the reference's MCMCChains integration
 (`result2mcmcchain` / `mcmcchain2result`,
@@ -15,7 +17,10 @@ bulk/tail ESS diagnostics (Vehtari et al. 2021).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 from scipy.special import ndtri
 
 
@@ -245,6 +250,151 @@ def ess_rhat_batch(x: np.ndarray):
     rhat[ok] = rhat_sub
     return ess, rhat
 
+
+# Device memory that one draw of one parameter row takes at the peak of
+# a call (the input and its row-major copy, the sort, the tie-group bounds
+# in int64, the scores and the FFT): 73.5-77.0 bytes in float32 on an
+# NVIDIA H100 80GB HBM3 (700 W), measured by `chip_smoke.py`'s diagnostics
+# phase, rounded up; it sets how many rows one pass takes.
+_PEAK_BYTES_PER_DRAW = 80
+# the CPU's pass: at most this many draws (rows x draws per row)
+_CPU_DRAWS_PER_PASS = 2**24
+
+
+def _rank_normal_scores(x):
+    """Rank-normal scores of each row of x (R, S), with average ranks for
+    ties, and the sorted rows.
+
+    One sort per row; each sorted position's tie group [start, end) comes
+    from a forward cummax over the boundary indices and a reverse cummin
+    over the next boundary's, giving the average 1-based rank
+    (start + end + 1) / 2, as scipy's rankdata(method="average"). The
+    Blom score of rank k / 2 is ndtri((k - 3/4) / (2S + 1/2)); in float32
+    that argument rounds to 1.0 near the top ranks once S >= 2^23, so the
+    upper half is evaluated as -ndtri((2S - k + 5/4) / (2S + 1/2)), with
+    the integer 2S - k formed in int64."""
+    R, S = x.shape
+    s, order = torch.sort(x, dim=-1)
+    idx = torch.arange(S, device=x.device)
+    boundary = torch.ones_like(s, dtype=torch.bool)
+    boundary[:, 1:] = s[:, 1:] != s[:, :-1]
+    starts = torch.cummax(torch.where(boundary, idx, 0), dim=-1).values
+    nxt = torch.where(boundary, idx, S)
+    ends = torch.cummin(nxt.flip(-1), dim=-1).values.flip(-1)
+    ends = torch.cat([ends[:, 1:], ends.new_full((R, 1), S)], dim=-1)
+    k = starts + ends + 1
+    del starts, ends, nxt, boundary
+    upper = k > S
+    num = torch.where(upper, 2 * S - k, k).to(x.dtype)
+    p = (num + torch.where(upper, 1.25, -0.75).to(x.dtype)) / (2.0 * S + 0.5)
+    z0 = torch.special.ndtri(p)
+    z_sorted = torch.where(upper, -z0, z0)
+    return torch.empty_like(x).scatter_(-1, order, z_sorted), s
+
+
+def _split_rhat_ess(z, m, n, nfft, compute_ess=True):
+    """Split-R̂ and (if asked) ESS with the Geyer initial monotone
+    sequence for each row of z (R, m * n); the torch form of
+    `_split_ess_rhat_raw_batch`, with the FFT at `nfft`."""
+    R = z.shape[0]
+    zc = z.reshape(R, m, n)
+    half = n // 2
+    xs = torch.cat([zc[:, :, :half], zc[:, :, half: 2 * half]], dim=1)
+    mm, nn = 2 * m, half
+    W = xs.var(dim=-1, correction=1).mean(dim=-1)
+    B = nn * xs.mean(dim=-1).var(dim=-1, correction=1)
+    var_plus = (nn - 1) / nn * W + B / nn
+    rhat = torch.where(W > 0, torch.sqrt(var_plus / W), torch.nan)
+    if not compute_ess:
+        return None, rhat
+    f = torch.fft.rfft(xs - xs.mean(dim=-1, keepdim=True), n=nfft, dim=-1)
+    power = (f.real * f.real + f.imag * f.imag).sum(dim=1) / mm
+    del f
+    mean_acov = torch.fft.irfft(power, n=nfft, dim=-1)[:, :nn] / nn
+    rho = 1 - (W[:, None] - mean_acov) / var_plus[:, None]
+    t_max = (nn // 2) * 2
+    pair = rho[:, :t_max].reshape(R, -1, 2).sum(dim=-1)
+    T = pair.shape[1]
+    pos = pair > 0
+    first_neg = torch.where(pos.all(dim=-1), T, torch.argmax((~pos).to(torch.uint8), dim=-1))
+    mask = torch.arange(T, device=z.device) < first_neg[:, None]
+    cummin = torch.cummin(torch.where(mask, pair, torch.inf), dim=-1).values
+    tau = -1.0 + 2.0 * torch.where(mask, cummin, 0.0).sum(dim=-1)
+    tau = torch.where(first_neg == 0, 1.0, tau)
+    tau = torch.clamp(tau, min=1.0 / math.log10(nn + 10))
+    return mm * nn / tau, rhat
+
+
+def _ess_rhat_rows(flat, m, n, nfft):
+    """Bulk ESS and max of bulk and folded split-R̂ of each row of flat
+    (R, m * n). Rows that are not finite, or constant (`_constant_rows`'
+    test), are replaced by arange so the arithmetic stays finite, and
+    their results are NaN."""
+    S = flat.shape[1]
+    row0 = flat[:, :1]
+    tol = 1e-08 + 1e-05 * row0.abs()
+    constant = (((flat.amax(dim=1, keepdim=True) - row0) <= tol)
+                & ((row0 - flat.amin(dim=1, keepdim=True)) <= tol))[:, 0]
+    ok = torch.isfinite(flat).all(dim=1) & ~constant
+    safe = torch.where(ok[:, None], flat, torch.arange(S, device=flat.device, dtype=flat.dtype))
+    z, s = _rank_normal_scores(safe)
+    ess, rhat_bulk = _split_rhat_ess(z, m, n, nfft)
+    del z
+    # the median from the sorted rows, as np.median takes it
+    med = (s[:, (S - 1) // 2] + s[:, S // 2]) * 0.5
+    del s
+    zf, _ = _rank_normal_scores((safe - med[:, None]).abs())
+    _, rhat_folded = _split_rhat_ess(zf, m, n, nfft, compute_ess=False)
+    rhat = torch.fmax(rhat_bulk, rhat_folded)
+    return torch.where(ok, ess, torch.nan), torch.where(ok, rhat, torch.nan)
+
+
+def ess_rhat_batch_device(x, *, device=None):
+    """`ess_rhat_batch` computed with torch on a device: the same
+    accounting (rank-normalized bulk ESS with exact average-tie ranks,
+    max of bulk and folded split-R̂, NaN for non-finite or constant
+    parameters), on x of shape (chains, draws, P) or (chains, draws).
+
+    A tensor runs on its own device, in its own floating dtype; anything
+    else is converted (a numpy array keeps its float dtype) and sent to
+    `device`, the GPU unless the caller says `device="cpu"`. With no CUDA
+    device that raises. Rows are processed in passes of as many as a
+    quarter of the free device memory holds (on the CPU, up to 2^24 draws
+    a pass). In float64 this matches the numpy oracle to ~1e-12; the
+    sampler's float32 gives ~1e-5, far inside a 1.05 R̂ gate. Returns
+    numpy (ess (P,), rhat (P,))."""
+    if not isinstance(x, torch.Tensor):
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"ess_rhat_batch_device was asked for device {dev!s}, but no CUDA "
+                "device is available; pass device=\"cpu\" for the CPU"
+            )
+        x = torch.as_tensor(np.asarray(x), device=dev)
+    elif device is not None:
+        x = x.to(device)
+    if not x.is_floating_point():
+        x = x.double()
+    if x.ndim == 2:
+        x = x[:, :, None]
+    m, n, P = x.shape
+    if n < 4:
+        return np.full(P, np.nan), np.full(P, np.nan)
+    from scipy.fft import next_fast_len
+
+    nfft = next_fast_len(2 * (n // 2), real=True)
+    S = m * n
+    if x.device.type == "cuda":
+        budget = torch.cuda.mem_get_info(x.device)[0] // 4 // _PEAK_BYTES_PER_DRAW
+    else:
+        budget = _CPU_DRAWS_PER_PASS
+    rows = int(min(P, max(1, budget // S)))
+    flat = x.detach().permute(2, 0, 1).reshape(P, S)
+    with torch.no_grad():
+        parts = [_ess_rhat_rows(flat[i: i + rows], m, n, nfft) for i in range(0, P, rows)]
+    ess = torch.cat([e for e, _ in parts])
+    rhat = torch.cat([r for _, r in parts])
+    return ess.cpu().numpy(), rhat.cpu().numpy()
 
 
 def ess_tail(x: np.ndarray):

@@ -25,6 +25,11 @@ def gauss2d_logpdf(r1, r2, sigma1, sigma2, cor):
     return -_LOG_2PI - 0.5 * logdet - 0.5 * z / one_m_c2
 
 
+def gauss_logpdf(resid, sigma):
+    """Elementwise univariate normal log-density of residuals."""
+    return -0.5 * (resid / sigma) ** 2 - torch.log(sigma) - 0.5 * _LOG_2PI
+
+
 def take_epochs(sol: OrbitSolution, start: int, n: int) -> OrbitSolution:
     """Slice the epoch axis (the last) of a batched OrbitSolution."""
     sliced = {

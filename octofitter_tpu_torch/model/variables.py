@@ -169,15 +169,17 @@ class AbstractObs:
         """True for pseudo-likelihoods that act as priors (no data rows)."""
         return False
 
-    def column(self, name: str, like: torch.Tensor) -> torch.Tensor:
-        """Table column `name` as a tensor of `like`'s dtype and device,
-        converted once per (dtype, device) and then reused."""
+    def constant(self, name: str, make, like: torch.Tensor) -> torch.Tensor:
+        """`make()` (array data) as a tensor of `like`'s dtype and device,
+        converted once per (name, dtype, device) and then reused."""
         key = (name, like.dtype, like.device)
         if key not in self._columns:
-            self._columns[key] = torch.as_tensor(
-                self.table[name], dtype=like.dtype, device=like.device
-            )
+            self._columns[key] = torch.as_tensor(make(), dtype=like.dtype, device=like.device)
         return self._columns[key]
+
+    def column(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """Table column `name` as a tensor of `like`'s dtype and device."""
+        return self.constant(name, lambda: self.table[name], like)
 
     def ln_like(self, ctx):
         raise NotImplementedError

@@ -258,7 +258,7 @@ def run_chees(
         da = da_init(initial_step_size)
         log_T = math.log(16.0 * initial_step_size)
         adam = AdamState(0.0, 0.0, 0.0)
-        welford = welford_init(D, dtype, dense, device)
+        welford = welford_init(D, dtype, dense, device=device)
         metric_cur = metric_from_sigma(sigma0)
         for s, u in enumerate(halton_sequence(n_warmup).tolist()):
             Theta, lp, Grad, stats, g_logT, L = _chees_transition(
@@ -281,7 +281,7 @@ def run_chees(
                 welford = welford_update_batch(welford, Theta)
             if window_end[s]:
                 metric_cur = metric_from_sigma(welford_sigma(welford))
-                welford = welford_init(D, dtype, dense, device)
+                welford = welford_init(D, dtype, dense, device=device)
                 da = da_init(math.exp(da.log_eps))
             wdivs.append(stats.is_divergent.sum())
             T_trace.append(math.exp(log_T))

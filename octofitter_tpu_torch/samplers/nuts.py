@@ -87,7 +87,7 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor      # (D,) for diag, (D, D) for dense
 
 
-def welford_init(D, dtype, dense: bool, device="cpu") -> WelfordState:
+def welford_init(D, dtype, dense: bool, *, device) -> WelfordState:
     return WelfordState(
         n=0.0,
         mean=torch.zeros((D,), dtype=dtype, device=device),

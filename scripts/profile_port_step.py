@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's sampling step on one NVIDIA GPU.
 
-    python3 scripts/profile_port_step.py
+    python3 scripts/profile_port_step.py [--model headline|joint]
 
-Builds the headline model of `chip_smoke.py` in float32 on the GPU,
-initializes it, then:
+Builds a model of `chip_smoke.py` in float32 on the GPU (the headline
+relative-astrometry fit, or the joint astrometry + HGCA + marginalized-RV
+fit of `examples/02_joint_astrom_pma_rv.py`, 70 epochs), initializes it,
+then:
 
 1. times one batched `ln_post_and_grad` (forward + backward over all
    chains) with CUDA events, against its forward alone;
@@ -22,6 +24,7 @@ initializes it, then:
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -33,6 +36,9 @@ CHAINS, STEPS = 4096, 20
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("headline", "joint"), default="headline")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port_step: no CUDA device")
     sys.path.insert(0, str(ROOT))
@@ -41,8 +47,14 @@ def main() -> int:
     from octofitter_tpu_torch.samplers.chees import _chees_transition
     from octofitter_tpu_torch.samplers.nuts import metric_from_sigma
 
-    model = chip_smoke.build_model(ot, chip_smoke.bench_table(ot), device="cuda",
-                                   dtype=torch.float32)
+    if args.model == "headline":
+        model = chip_smoke.build_model(ot, chip_smoke.bench_table(ot), device="cuda",
+                                       dtype=torch.float32)
+    else:
+        model = chip_smoke.build_joint_model(ot, chip_smoke.joint_data(ot), device="cuda",
+                                             dtype=torch.float32)
+    print(f"model: {args.model}, D = {model.D}, {model.n_epochs} epochs, {CHAINS} chains, "
+          f"on {torch.cuda.get_device_name(0)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.initialize(gen, verbosity=0, n_prior_samples=20_000, n_multistart=256,
                      n_opt_steps=300)
