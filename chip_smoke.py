@@ -22,7 +22,8 @@ non-zero:
    both precisions, at the headline's (chains, 12), at the joint fit's
    (chains, 70) with epochs drawn over MJD 47,600-58,500 (in float32 the
    forward's one-epoch-per-thread instantiation, since 70 is no multiple
-   of 4) and at 2^17 chains x 64 epochs, on elements drawn from the
+   of 4), at the partial-arc ladder's (65,536, 12) on its 600-day arc and
+   at 2^17 chains x 64 epochs, on elements drawn from the
    benchmark priors' ranges plus edge chains; the backward runs twice and
    must repeat its bits; all are timed (plain, kernel, kernel, plain);
 5. main path: the benchmark's headline model (`bench.py:build_model`:
@@ -50,9 +51,23 @@ non-zero:
    model, then `octofit` as in 5 with the same gates, the posterior
    medians of b_mass and b_a within 5 sd of 12 Mjup and 9 AU, and the
    Kepler kernel held to its twin at the shapes this run launched it with;
-9. diagnostics: `ess_rhat_batch_device` on the card against the numpy
-   oracle `ess_rhat_batch`, both timed, on both paths' draws and on a
-   synthetic case past S = 2^23 draws with ties.
+9. partial-arc parallel tempering (`bench.py:218-296`): the headline
+   model on a 600-day arc (MJD 56,800-57,400) in float32 on the GPU,
+   checked against a float64 CPU model, `initialize` with the default
+   sizes, then `octofit_pigeons` with the bench's `_PA_KWARGS` (4096
+   walkers x (8 + 8) rungs, ChEES explorer capped at 512 leapfrog steps)
+   for PT_ROUNDS rounds (the bench's 9, cut); prints each round's sweeps,
+   seconds, leapfrog counts, barriers and round trips, the device
+   diagnostics of the 2W recorded chains and the bench's
+   `partial_arc_pt_ess_per_sec`; gates: finite draws, a round trip, finite
+   log-evidence and barriers, swap rejections in (0, 1), the ridge covered
+   (q5(b_a) < 12, q95(b_a) > 25), the Kepler kernel launched by the
+   Laplace step and the fused pair on every annealed evaluation and
+   components pass; then the Kepler kernel held to its twin at the shapes
+   this run launched it with;
+10. diagnostics: `ess_rhat_batch_device` on the card against the numpy
+   oracle `ess_rhat_batch`, both timed, on the headline and joint draws
+   and on a synthetic case past S = 2^23 draws with ties.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -60,7 +75,8 @@ for `kepler_solve`, the largest over the 14 fields in their own units for
 `orbit_solve_fwd`, the worst chain's scaled gradient error for
 `orbit_solve_bwd`; `kepler_solve` also carries the composed path's
 (chains, 12) shape under `composed_*` keys), and at the joint path's
-shape under `joint_*` keys, with that path's launches; the last is
+shape under `joint_*` keys, and at the partial-arc PT path's under `pt_*`
+keys, each with that path's launches; the last is
 `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -85,6 +101,23 @@ JOINT_MASS = 12.0
 JOINT_EPOCHS = 70
 JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
 CHAINS, ADAPTATION, ITERATIONS = 4096, 700, 1000
+# the partial-arc parallel-tempering fit (`bench.py:218-296`): the
+# headline model with its 12 epochs on a 600-day arc, sampled with the
+# bench's `_PA_KWARGS` (4096 walkers x (8 + 8) rungs, ChEES explorer); the
+# bench's 9 rounds cut to PT_ROUNDS
+PA_SPAN = (56800.0, 57400.0)
+PA_KWARGS = dict(n_chains=8, n_chains_variational=8, n_walkers=4096,
+                 explorer="chees", explorer_n_leapfrog=512)
+PT_ROUNDS = 6
+# No replica completes a round trip on this ladder in the rounds that fit
+# (an NVIDIA H100 run, 5 to 7 rounds): the prior rung's IID draws lie
+# 1e4-1e6 nats below rung 1, so the pair at either reference rejects every
+# swap while the Syed update shrinks the next beta by about a third per
+# round. The round trips are printed; the gate is that every pair between
+# two annealed rungs (neither reference, not the always-accepted
+# target|target pair) accepts at least 1% of its swaps.
+SWAP_REJECTION_MAX = 0.99
+PT_CHAINS = PA_KWARGS["n_walkers"] * (PA_KWARGS["n_chains"] + PA_KWARGS["n_chains_variational"])
 
 # Tolerances for kernel vs twin, absolute on E. The float32 bound is the
 # Pallas kernel's test bound (tests/test_kepler.py). Both grow with |M|/50
@@ -259,16 +292,17 @@ def kernel_phase(kk, twin, chains: int) -> dict:
     return {"errs": errs, "timing": timing}
 
 
-def _orbit_inputs(n_chains: int, n_epochs: int, dtype, span=None):
+def _orbit_inputs(n_chains: int, n_epochs: int, dtype, span=None, grid=(55000.0, 59500.0)):
     """Elements (8, B) and epochs (T,) on the card: drawn with numpy from
     the benchmark priors' ranges (a from 2 AU up, so that the bulk stays
     within a few periods of tp), then edge chains: e = 0, e = 0.99, i = 0,
     i = pi / 2, an epoch exactly at tp, and two chains of a = 0.3 AU whose
     epochs lie up to 120 periods from tp (one of them at e = 0.99). The
-    epochs are the headline's even grid, or drawn over `span` (MJD)."""
+    epochs are an even grid over `grid` (the headline's by default), or
+    drawn over `span` (MJD)."""
     rng = np.random.default_rng(2)
     if span is None:
-        epochs = np.linspace(55000.0, 59500.0, n_epochs)
+        epochs = np.linspace(*grid, n_epochs)
     else:
         epochs = rng.uniform(*span, n_epochs)
     a = rng.uniform(2.0, 100.0, n_chains)
@@ -326,14 +360,18 @@ def forward_instantiation(t, out) -> int:
 def orbit_phase(osk, elements, chains: int) -> dict:
     """Fused forward and backward kernels against their plain versions on
     the card, then their timings. Returns, per kernel, the float32 error
-    and timings at the headline's shape, the joint fit's and the large one."""
+    and timings at the headline's shape, the joint fit's, the partial-arc
+    ladder's (all its walkers and rungs, on its 600-day arc) and the large
+    one."""
     res = {"fwd": {}, "bwd": {}}
-    shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS, None),
-              (f"({chains}, {JOINT_EPOCHS})", chains, JOINT_EPOCHS, JOINT_SPAN),
-              (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS, None))
-    for label, n_chains, n_epochs, span in shapes:
+    headline_grid = (55000.0, 59500.0)
+    shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS, None, headline_grid),
+              (f"({chains}, {JOINT_EPOCHS})", chains, JOINT_EPOCHS, JOINT_SPAN, None),
+              (f"({PT_CHAINS}, {N_EPOCHS})", PT_CHAINS, N_EPOCHS, None, PA_SPAN),
+              (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS, None, headline_grid))
+    for label, n_chains, n_epochs, span, grid in shapes:
         for dtype in (torch.float32, torch.float64):
-            elems, t = _orbit_inputs(n_chains, n_epochs, dtype, span)
+            elems, t = _orbit_inputs(n_chains, n_epochs, dtype, span, grid)
             leaf = elems.clone().requires_grad_(True)
             plain = torch.stack(elements._kep_visual_fields(elements.VisualOrbit(*leaf), t))
             out = osk.orbit_solve_forward_cuda(elems, t)
@@ -439,7 +477,7 @@ def orbit_phase(osk, elements, chains: int) -> dict:
     return res
 
 
-def build_model(ot, table, **model_kw):
+def build_model(ot, table, name="bench", **model_kw):
     dist = ot.distributions
     astrom = ot.PlanetRelAstromObs(table, name="simdata")
     b = ot.Planet(
@@ -460,7 +498,7 @@ def build_model(ot, table, **model_kw):
         observations=[astrom],
     )
     system = ot.System(
-        name="bench",
+        name=name,
         variables=dict(
             M=dist.truncated(dist.Normal(1.2, 0.1), lower=0.1),
             plx=dist.truncated(dist.Normal(50.0, 0.02), lower=0.1),
@@ -470,10 +508,11 @@ def build_model(ot, table, **model_kw):
     return ot.LogDensityModel(system, verbosity=0, **model_kw)
 
 
-def bench_table(ot):
-    """`bench.py:build_model`'s data, simulated with the port's orbitsolve."""
+def bench_table(ot, t0=55000.0, t1=59500.0):
+    """`bench.py:build_model(t0, t1)`'s data, simulated with the port's
+    orbitsolve: the headline's by default, the partial arc's for PA_SPAN."""
     rng = np.random.default_rng(0)
-    epochs = np.linspace(55000.0, 59500.0, N_EPOCHS)
+    epochs = np.linspace(t0, t1, N_EPOCHS)
     sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE), epochs)
     return dict(
         epoch=epochs,
@@ -718,6 +757,114 @@ def joint_path_phase(ot, kk, osk, chains, adaptation, iterations) -> dict:
     return res
 
 
+def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
+    """The partial-arc parallel-tempering fit (`bench.py:229-296`): the
+    float32 GPU model checked against a float64 CPU model, `initialize`
+    with the default sizes, then `octofit_pigeons` with the bench's
+    `_PA_KWARGS` for `n_rounds` rounds, every launch count set to 0 just
+    before the initialization and read after it and after sampling.
+    Gates: finite draws, finite log-evidence and barriers, every
+    swap-rejection rate in (0, 1), swaps accepted on every pair between
+    two annealed rungs (see SWAP_REJECTION_MAX), the ridge covered
+    (tests/test_tempering.py's bound: q5(b_a) < 12 and q95(b_a) > 25), the
+    standalone Kepler kernel launched by the Laplace step and the fused
+    pair on every explorer evaluation and every components pass. Prints
+    max split-R-hat and min ESS of the 2W recorded chains by the device
+    diagnostics, and `partial_arc_pt_ess_per_sec` as the bench counts it:
+    the min ESS over every column of the chains over the wall time from
+    the start of sampling to the end of the diagnostics."""
+    table = bench_table(ot, *PA_SPAN)
+    model = build_model(ot, table, name="bench_partial_arc", device="cuda", dtype=torch.float32)
+    ref = build_model(ot, table, name="bench_partial_arc", device="cpu", dtype=torch.float64)
+    reference_phase("partial arc", model, ref, headline_points(ot, ref))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    kk.launches = osk.launches_fwd = osk.launches_bwd = 0
+    kk.launch_shapes.clear()
+    t0 = time.perf_counter()
+    model.initialize(gen, verbosity=1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
+                     "orbit_solve_bwd": osk.launches_bwd}
+    kepler_shapes = dict(kk.launch_shapes)
+    t_start = time.perf_counter()
+    chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=n_rounds, verbosity=1,
+                                     **PA_KWARGS)
+    torch.cuda.synchronize()
+    t_pt = time.perf_counter() - t_start
+    launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
+                "orbit_solve_bwd": osk.launches_bwd}
+    sampling_launches = {k: launches[k] - init_launches[k] for k in launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    names = model.parameter_names
+    x = np.stack([chain[n] for n in names], axis=-1)
+    t_diag = time.perf_counter()
+    ess, rhat = ot.ess_rhat_batch_device(x)
+    x_all = np.stack([chain[n] for n in chain.names], axis=-1)
+    ess_all, _ = ot.ess_rhat_batch_device(x_all)
+    t_diag = time.perf_counter() - t_diag
+    ess_per_sec = float(np.nanmin(ess_all)) / (time.perf_counter() - t_start)
+    k_min = int(np.nanargmin(ess))
+    ess_min, rhat_max = float(ess[k_min]), float(np.nanmax(rhat))
+    n_evals, n_sweeps, t_sampling = info["n_grad_evals"], info["n_sweeps"], info["sampling_time_s"]
+    n_draws = x.shape[0] * x.shape[1]
+    W, NT = PA_KWARGS["n_walkers"], PA_KWARGS["n_chains"] + PA_KWARGS["n_chains_variational"]
+    log(f"partial-arc PT: {W} walkers x ({PA_KWARGS['n_chains']} + "
+        f"{PA_KWARGS['n_chains_variational']}) rungs = {W * NT} chains, ChEES explorer capped at "
+        f"{PA_KWARGS['explorer_n_leapfrog']}, {n_rounds} rounds ({n_sweeps} sweeps; the bench's 9 "
+        f"are {2**10 - 2}), float32")
+    for r in info["rounds"]:
+        log(f"  round {r['round']}: {r['sweeps']} sweeps in {r['seconds']:.2f} s; per-rung leapfrog "
+            f"steps longest {r['L_longest']}, median {r['L_median']:g}; barrier {r['barrier']:.3f}, "
+            f"variational barrier {r['barrier_variational']:.3f}; round trips {r['round_trips']}")
+    log(f"  init {t_init:.2f} s, sampling {t_sampling:.2f} s, device diagnostics {t_diag:.2f} s")
+    log(f"  batched annealed gradient evaluations {n_evals} ({t_sampling / n_evals * 1e6:.1f} us "
+        f"each, sweeps included), components passes {n_sweeps}")
+    log(f"  recorded draws {x.shape[0]} chains x {x.shape[1]}; min rank-normalized ESS "
+        f"{ess_min:.1f} on {names[k_min]} ({ess_min / n_draws:.4f} per draw), max split-R-hat "
+        f"{rhat_max:.5f}; partial_arc_pt_ess_per_sec {ess_per_sec:.3f} (min ESS over all "
+        f"{len(chain.names)} columns {float(np.nanmin(ess_all)):.1f})")
+    log(f"  log-evidence {info['logevidence']:.3f} (se {info['logevidence_se']:.3f}), barrier "
+        f"{info['global_barrier']:.3f}, variational barrier "
+        f"{info['global_barrier_variational']:.3f}, round trips {info['n_round_trips']}")
+    log(f"  swap rejection {np.round(info['swap_rejection'], 4).tolist()}")
+    log(f"  betas {np.round(info['betas'], 5).tolist()}; variational "
+        f"{np.round(info['betas_variational'], 5).tolist()}")
+    log(f"  trajectory lengths {np.round(info['trajectory_length'], 5).tolist()}")
+    log(f"  kernel launches: initialization {init_launches}, sampling {sampling_launches}; "
+        f"kepler_solve by shape: {kepler_shapes}")
+    log(f"  peak device memory of the run {peak_gib:.3f} GiB")
+    a = chain["b_a"].reshape(-1)
+    q5, q50, q95 = np.quantile(a, [0.05, 0.5, 0.95])
+    log(f"  b_a quantiles 5/50/95%: {q5:.3f} / {q50:.3f} / {q95:.3f} (ridge bound: q5 < 12, q95 > 25)")
+
+    if not bool(np.isfinite(x).all()):
+        raise AssertionError("partial arc: non-finite draws")
+    inner_pairs = [j for j in range(NT - 1) if j not in (0, PA_KWARGS["n_chains"] - 1, NT - 2)]
+    worst_pair = max(inner_pairs, key=lambda j: info["swap_rejection"][j])
+    log(f"  swap rejection between annealed rungs at most {info['swap_rejection'][worst_pair]:.4f} "
+        f"(pair {worst_pair}; limit {SWAP_REJECTION_MAX})")
+    if not info["swap_rejection"][worst_pair] < SWAP_REJECTION_MAX:
+        raise AssertionError(f"partial arc: swaps across pair {worst_pair} were all but never accepted")
+    if not all(np.isfinite(info[k]) for k in
+               ("logevidence", "global_barrier", "global_barrier_variational")):
+        raise AssertionError("partial arc: non-finite log-evidence or barrier")
+    if not bool(((info["swap_rejection"] > 0) & (info["swap_rejection"] < 1)).all()):
+        raise AssertionError("partial arc: a swap-rejection rate outside (0, 1)")
+    if not (q5 < 12.0 and q95 > 25.0):
+        raise AssertionError(f"partial arc: the ridge is not covered (q5 {q5}, q95 {q95})")
+    if launches["kepler_solve"] == 0:
+        raise AssertionError("partial arc: the Laplace step never launched the standalone Kepler kernel")
+    if (sampling_launches["orbit_solve_fwd"] < n_evals + n_sweeps
+            or sampling_launches["orbit_solve_bwd"] < n_evals):
+        raise AssertionError(
+            f"partial arc: the fused orbit-solve kernels were launched {sampling_launches} times, "
+            f"fewer than the {n_evals} gradient evaluations (+ {n_sweeps} components passes)")
+    return {"launches": launches, "kepler_shapes": kepler_shapes, "chain": chain, "x": x}
+
+
 # The device diagnostics against the numpy oracle on the same float32
 # draws: the JAX package's own float32 tolerances for the same comparison
 # (tests/test_chains_batch.py), ESS to 2e-3 and R-hat to 1e-4 relative.
@@ -916,6 +1063,8 @@ def main() -> int:
     fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
     joint = joint_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
+    pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
+    ptres = kepler_path_phase(kk, kepler_mod, pt["kepler_shapes"])
     diagnostics_phase(ot, [("headline", main["x"]), ("joint", joint["x"])])
 
     f32 = torch.float32
@@ -943,6 +1092,16 @@ def main() -> int:
                                                     OPS_KEPLER * joint_kepler_row["n"], f32)),
         "orbit_solve_fwd": (ores["fwd"][(jshape, f32)], fwd_bound(CHAINS, JOINT_EPOCHS)),
         "orbit_solve_bwd": (ores["bwd"][(jshape, f32)], bwd_bound(CHAINS, JOINT_EPOCHS)),
+    }
+    # and at the partial-arc PT path's: the whole ladder in every fused call
+    pt_shape = f"({PT_CHAINS}, {N_EPOCHS})"
+    pt_kepler_shape = max(pt["kepler_shapes"], key=lambda s: int(np.prod(s)))
+    pt_kepler_row = ptres[(pt_kepler_shape, f32)]
+    pt_rows = {
+        "kepler_solve": (str(pt_kepler_shape), pt_kepler_row,
+                         bound_ms(12 * pt_kepler_row["n"], OPS_KEPLER * pt_kepler_row["n"], f32)),
+        "orbit_solve_fwd": (pt_shape, ores["fwd"][(pt_shape, f32)], fwd_bound(PT_CHAINS, N_EPOCHS)),
+        "orbit_solve_bwd": (pt_shape, ores["bwd"][(pt_shape, f32)], bwd_bound(PT_CHAINS, N_EPOCHS)),
     }
     kernels = []
     for kname, source, replaces, shape, row, row_big, bnd, bnd_big in (
@@ -982,6 +1141,12 @@ def main() -> int:
             "joint_ms": joint_rows[kname][0]["ms"],
             "joint_plain_ms": joint_rows[kname][0]["plain_ms"],
             "joint_bound_ms": joint_rows[kname][1][0],
+            "pt_shape": pt_rows[kname][0],
+            "pt_launches": pt["launches"][kname],
+            "pt_max_abs_err": pt_rows[kname][1]["err"],
+            "pt_ms": pt_rows[kname][1]["ms"],
+            "pt_plain_ms": pt_rows[kname][1]["plain_ms"],
+            "pt_bound_ms": pt_rows[kname][2][0],
         })
     composed_ms, composed_plain_ms = kres["timing"][(small, f32)]
     kernels[0].update({

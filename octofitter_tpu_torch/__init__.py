@@ -3,8 +3,10 @@
 The same model-building API as the JAX package (`Planet`, `System`,
 `UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
 likelihoods without Gaussian processes, `LogDensityModel`,
-`theta_at_epoch_to_tperi`, `octofit`, `Chains` and the diagnostics,
-`ess_rhat_batch_device` on the card among them), written in PyTorch.
+`theta_at_epoch_to_tperi`, the `UserLikelihood` and `DirectLL` user
+terms, `octofit`, the parallel-tempering `octofit_pigeons`, `Chains` and
+the diagnostics, `ess_rhat_batch_device` on the card among them), written
+in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -30,9 +32,11 @@ from .orbits import (
 from .model import (
     Params,
     Derived,
+    DirectLL,
     Planet,
     System,
     UniformCircular,
+    UserLikelihood,
     LogDensityModel,
     theta_at_epoch_to_tperi,
     likelihoodname,
@@ -56,7 +60,7 @@ from .rv import (
 )
 from . import io
 from .config import OctofitterConfig, get_config, set_config
-from .samplers import octofit
+from .samplers import octofit, octofit_pigeons
 from .chains import (
     Chains,
     ess_rhat,

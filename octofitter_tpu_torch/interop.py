@@ -5,11 +5,14 @@ flat unconstrained vector from one is valid as it stands in the other.
 `load_jax_state` takes the JAX model's initialization as numpy arrays
 (this module imports no JAX) and sets it on a port model, so both
 packages can start their samplers from the same points.
+`load_jax_pt_checkpoint` reads a JAX `octofit_pigeons` checkpoint into
+the port's resume state, so both packages can continue one tuned ladder.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .model.logdensity import LogDensityModel
 
@@ -35,3 +38,21 @@ def load_jax_state(model: LogDensityModel, *, parameter_names, starting_points,
     model.starting_points = model.tensor(pts)
     model.laplace_sigma = model.tensor(sigma)
     return model
+
+
+def load_jax_pt_checkpoint(path, generator: torch.Generator) -> dict:
+    """The resume state of a JAX `octofit_pigeons` checkpoint (`.npz`),
+    for `octofitter_tpu_torch.octofit_pigeons(..., resume=state,
+    generator=generator)`: the ladder's states, both legs' schedules, the
+    per-rung step-size (dual averaging) and trajectory-length (Adam)
+    adaptation, the diagonal metrics, the Gaussian reference, the replica
+    labels and directions, the counters and the next round. The JAX key
+    has no torch counterpart: the run continues from `generator`'s
+    current state (a generator on the model's device, seeded by the
+    caller)."""
+    from .samplers.tempering import pt_state_from_npz
+
+    with np.load(path) as z:
+        state = pt_state_from_npz(z)
+    state["generator_state"] = generator.get_state()
+    return state

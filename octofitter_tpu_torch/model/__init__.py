@@ -4,12 +4,14 @@ from .params import Params, hasproperty
 from .variables import (
     AbstractObs,
     Derived,
+    DirectLL,
     Planet,
     PlanetObservationContext,
     System,
     SystemObservationContext,
     UniformCircular,
     UnitLengthPrior,
+    UserLikelihood,
     likelihoodname,
     normalizename,
 )
@@ -21,12 +23,14 @@ __all__ = [
     "hasproperty",
     "AbstractObs",
     "Derived",
+    "DirectLL",
     "Planet",
     "PlanetObservationContext",
     "System",
     "SystemObservationContext",
     "UniformCircular",
     "UnitLengthPrior",
+    "UserLikelihood",
     "likelihoodname",
     "normalizename",
     "LogDensityModel",

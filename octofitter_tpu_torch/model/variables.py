@@ -1,7 +1,7 @@
 """Model specification: variables, planets, systems, observation interface.
 
 PyTorch port of `octofitter_tpu/model/variables.py` (the part the
-headline fit uses). A ``variables=dict(...)`` holds
+ported fits use, with the `UserLikelihood` and `DirectLL` user terms). A ``variables=dict(...)`` holds
 
   - a Distribution value: a *prior* (`x ~ Dist`),
   - a number/array: a constant,
@@ -240,6 +240,48 @@ class UnitLengthPrior(AbstractObs):
         x = theta[self.varx]
         y = theta[self.vary]
         return self._dist.logpdf(torch.sqrt(x * x + y * y))
+
+
+class UserLikelihood(AbstractObs):
+    """`lhs ~ rhs` user term: adds logpdf(dist, value) where one side
+    names a variable holding a Distribution and the other a value
+    (`variables.jl:332-385`). The Distribution side is passed directly."""
+
+    def __init__(self, dist: Distribution, var: str, name: str):
+        super().__init__(variables=None, name=name)
+        self.dist = dist
+        self.var = var
+
+    @property
+    def is_prior(self):
+        return True
+
+    def ln_like(self, ctx):
+        if isinstance(ctx, PlanetObservationContext):
+            theta = ctx.theta_system.merge(ctx.theta_planet).merge(ctx.theta_obs)
+        else:
+            theta = ctx.theta_system.merge(ctx.theta_obs)
+        return self.dist.logpdf(theta[self.var])
+
+
+class DirectLL(AbstractObs):
+    """`LL += expr` escape hatch: adds the value of a named (derived)
+    variable directly to the log-likelihood (`variables.jl:397-424`)."""
+
+    def __init__(self, var: str, name: str | None = None):
+        super().__init__(variables=None, name=name or f"directll_{var}")
+        self.var = var
+
+    @property
+    def is_prior(self):
+        return True
+
+    def ln_like(self, ctx):
+        if isinstance(ctx, PlanetObservationContext):
+            theta = ctx.theta_system.merge(ctx.theta_planet).merge(ctx.theta_obs)
+        else:
+            theta = ctx.theta_system.merge(ctx.theta_obs)
+        return theta[self.var]
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,11 @@ adaptation, and the leapfrog count is a host integer.
 
 `value_and_grad(Theta) -> (lp, Grad)` works on the whole (C, D) chain
 batch at once.
+
+`_chees_transition_rungs` is the parallel-tempering explorer's form: the
+JAX package vmaps `_chees_transition` over the rungs of a ladder
+(`tempering.py:395-421`), and here all rungs' chains are one batch, each
+rung with its own step size, diagonal metric and leapfrog count.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .nuts import (
     build_warmup_schedule,
     da_init,
     da_update,
+    leapfrogs_masked,
     metric_from_sigma,
     welford_init,
     welford_sigma,
@@ -111,22 +117,26 @@ def halton_sequence(n: int, base: int = 2) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Adam on log trajectory length (host scalars)
+# Adam on log trajectory length (host floats, or one per rung)
 # --------------------------------------------------------------------------
 
 class AdamState(NamedTuple):
-    m: float
-    v: float
-    t: float
+    """Leaves are floats, or (NT,) numpy arrays with one entry per rung;
+    `_adam_step` is elementwise."""
+
+    m: float | np.ndarray
+    v: float | np.ndarray
+    t: float | np.ndarray
 
 
-def _adam_step(state: AdamState, g: float, lr=0.025, b1=0.9, b2=0.95, eps=1e-8):
+def _adam_step(state: AdamState, g, lr=0.025, b1=0.9, b2=0.95, eps=1e-8):
     t = state.t + 1
     m = b1 * state.m + (1 - b1) * g
     v = b2 * state.v + (1 - b2) * g * g
     mh = m / (1 - b1**t)
     vh = v / (1 - b2**t)
-    return AdamState(m, v, t), lr * mh / (math.sqrt(vh) + eps)
+    sqrt_vh = math.sqrt(vh) if isinstance(vh, float) else np.sqrt(vh)
+    return AdamState(m, v, t), lr * mh / (sqrt_vh + eps)
 
 
 # --------------------------------------------------------------------------
@@ -186,6 +196,61 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
         step_size=torch.full((C,), eps, dtype=Theta.dtype, device=Theta.device),
     )
     return Theta_new, lp_new, Grad_new, stats, grad_logT, L
+
+
+def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
+                            n_steps, u, n_rungs):
+    """One shared-trajectory ChEES transition of every rung of a ladder.
+
+    Theta (C, D) holds C = W * n_rungs chains, walker-major: row
+    w * n_rungs + n is walker w at rung n. eps (n_rungs,) and sigma
+    (n_rungs, D) are each rung's step size and diagonal metric; n_steps
+    (n_rungs,) host integers are each rung's leapfrog count. All rows take
+    max(n_steps) leapfrog steps, evaluated together; a rung's rows stop
+    changing once they have taken their own count (its later steps are
+    computed and masked out), as under the JAX package's vmap of a
+    `while_loop`.
+
+    Returns the new Theta, each row's acceptance probability (C,), and the
+    ChEES gradient of log T per rung (n_rungs,), each estimated from that
+    rung's W walkers. (A ladder re-evaluates its states after the swaps
+    that follow, so lp and Grad are not returned.)"""
+    C, D = Theta.shape
+    W = C // n_rungs
+    eps_r = eps.repeat(W)[:, None]
+    sigma_r = sigma.repeat(W, 1)
+    Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
+    R0 = Z / torch.sqrt(sigma_r)
+    H0 = -lp + 0.5 * torch.sum(R0 * R0 * sigma_r, dim=-1)
+
+    steps_r = torch.as_tensor(np.tile(n_steps, W), device=Theta.device)
+    Theta1, R1, lp1, _ = leapfrogs_masked(vg_batch, Theta, R0, lp, Grad, eps_r, sigma_r,
+                                          steps_r, int(np.min(n_steps)), int(np.max(n_steps)))
+
+    H1 = -lp1 + 0.5 * torch.sum(R1 * R1 * sigma_r, dim=-1)
+    delta = H1 - H0
+    delta = torch.where(torch.isnan(delta), torch.inf, delta)
+    alpha = torch.clamp(torch.exp(-delta), max=1.0)
+    divergent = delta > MAX_DELTA_ENERGY
+    accept = torch.rand((C,), generator=generator, dtype=Theta.dtype,
+                        device=generator.device) < alpha
+    Theta_new = torch.where(accept[:, None], Theta1, Theta)
+
+    # the ChEES gradient estimate of `_chees_transition`, per rung: rungs
+    # are the second axis of the (W, n_rungs, ...) views, walkers the first
+    w = torch.where(divergent, 0.0, alpha).view(W, n_rungs)
+    Th0 = Theta.view(W, n_rungs, D)
+    Th1 = Theta1.view(W, n_rungs, D)
+    wsum = torch.clamp(w.sum(dim=0), min=1e-12)
+    mean_prop = (w[..., None] * Th1).sum(dim=0) / wsum[:, None]
+    dsq_prop = torch.sum((Th1 - mean_prop) ** 2, dim=-1)
+    dsq_cur = torch.sum((Th0 - Th0.mean(dim=0)) ** 2, dim=-1)
+    V1 = (R1 * sigma_r).view(W, n_rungs, D)
+    proj = torch.sum((Th1 - mean_prop) * V1, dim=-1)
+    per_chain = (dsq_prop - dsq_cur) * proj
+    per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
+    grad_logT = (w * per_chain).sum(dim=0) / wsum * u
+    return Theta_new, alpha, grad_logT
 
 
 def _stack_draws(Thetas, lps, stats_list):

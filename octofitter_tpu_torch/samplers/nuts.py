@@ -3,9 +3,10 @@ averaging, Welford covariance, and the warmup window schedule.
 
 PyTorch port of the parts of `octofitter_tpu/samplers/nuts.py` that
 ChEES uses (`chees.py:40-50`); the NUTS transition itself is not ported
-yet. Scalar adaptation state (dual averaging) is kept in Python floats
-on the host; the sampler reads one scalar per step from the device to
-drive it.
+yet. Adaptation state (dual averaging) is kept on the host: Python floats
+for one shared step size, or numpy arrays for one per tempering rung
+(the arithmetic is elementwise, so one update serves both). The sampler
+reads the mean acceptance from the device once per step to drive it.
 """
 
 from __future__ import annotations
@@ -46,32 +47,64 @@ def metric_from_sigma(sigma: torch.Tensor) -> Metric:
 
 
 # --------------------------------------------------------------------------
+# Leapfrog steps of a batch, each chain stopping at its own count
+# --------------------------------------------------------------------------
+
+def leapfrogs_masked(value_and_grad, Theta, R, lp, Grad, eps, sigma, n_steps, n_min, n_max):
+    """`n_max` leapfrog steps of a (C, D) batch under a diagonal metric
+    (velocity = sigma * R), every chain evaluated at every step; chain c
+    stops changing after n_steps[c] (a (C,) tensor) steps, all chains
+    taking at least the host integer n_min. eps and sigma broadcast
+    against (C, 1) and (C, D). Returns (Theta, R, lp, Grad)."""
+    for i in range(n_max):
+        R_half = R + 0.5 * eps * Grad
+        Theta2 = Theta + eps * (R_half * sigma)
+        lp2, Grad2 = value_and_grad(Theta2)
+        R2 = R_half + 0.5 * eps * Grad2
+        if i < n_min:
+            Theta, R, lp, Grad = Theta2, R2, lp2, Grad2
+            continue
+        go = n_steps > i
+        Theta = torch.where(go[:, None], Theta2, Theta)
+        R = torch.where(go[:, None], R2, R)
+        lp = torch.where(go, lp2, lp)
+        Grad = torch.where(go[:, None], Grad2, Grad)
+    return Theta, R, lp, Grad
+
+
+# --------------------------------------------------------------------------
 # Step-size dual averaging (Stan parameters)
 # --------------------------------------------------------------------------
 
 class DualAveragingState(NamedTuple):
-    log_eps: float
-    log_eps_avg: float
-    h_avg: float
-    mu: float
-    count: float
+    """Leaves are floats (one step size) or (NT,) numpy arrays (one per
+    rung); every operation on them is elementwise."""
+
+    log_eps: float | np.ndarray
+    log_eps_avg: float | np.ndarray
+    h_avg: float | np.ndarray
+    mu: float | np.ndarray
+    count: float | np.ndarray
 
 
-def da_init(eps: float) -> DualAveragingState:
-    return DualAveragingState(
-        log_eps=math.log(eps),
-        log_eps_avg=math.log(eps),
-        h_avg=0.0,
-        mu=math.log(10.0 * eps),
-        count=0.0,
-    )
+def da_init(eps) -> DualAveragingState:
+    """Fresh state at step size `eps`: a float, or an array of them.
+    A float keeps Python floats (and `math`) throughout, so the one-step-
+    size sampler's arithmetic does not depend on numpy's vector math."""
+    if np.ndim(eps) == 0:
+        eps = float(eps)
+        return DualAveragingState(math.log(eps), math.log(eps), 0.0, math.log(10.0 * eps), 0.0)
+    eps = np.asarray(eps, dtype=np.float64)
+    zero = np.zeros_like(eps)
+    return DualAveragingState(np.log(eps), np.log(eps), zero, np.log(10.0 * eps), zero)
 
 
-def da_update(state: DualAveragingState, alpha: float, target=0.8,
+def da_update(state: DualAveragingState, alpha, target=0.8,
               gamma=0.05, t0=10.0, kappa=0.75) -> DualAveragingState:
     t = state.count + 1
     h_avg = (1 - 1 / (t + t0)) * state.h_avg + (target - alpha) / (t + t0)
-    log_eps = state.mu - math.sqrt(t) / gamma * h_avg
+    sqrt_t = math.sqrt(t) if isinstance(t, float) else np.sqrt(t)
+    log_eps = state.mu - sqrt_t / gamma * h_avg
     eta = t ** (-kappa)
     log_eps_avg = eta * log_eps + (1 - eta) * state.log_eps_avg
     return DualAveragingState(log_eps, log_eps_avg, h_avg, state.mu, t)

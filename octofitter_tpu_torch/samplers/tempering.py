@@ -1,0 +1,641 @@
+"""Non-reversible parallel tempering.
+
+PyTorch port of `octofitter_tpu/samplers/tempering.py`: deterministic
+even/odd (DEO) replica exchange between a prior reference and the
+posterior target, with an optional variational leg whose Gaussian
+reference is moment-matched to the target, round-based schedule
+adaptation from swap rejection rates (Syed et al. 2021), round-trip
+accounting, stepping-stone log-evidence and round checkpoints.
+
+The whole ladder is one batch: states are (n_walkers, n_rungs, D) on the
+model's device, and the explorer steps all W * NT chains at once, each
+rung with its own step size, diagonal metric and (for ChEES) trajectory
+length. A sweep reads one small array from the device, the rungs' mean
+acceptance and ChEES gradients, from which the host adapts the step sizes
+and trajectory lengths (elementwise dual averaging and Adam over the
+rungs) and sets the next sweep's leapfrog counts. Swap statistics, metric
+moments and round-trip counts stay on the device until a round ends.
+
+Annealed density of a rung, in unconstrained space, a combination of the
+components (ln_prior_t, ln_like, log q) with per-rung coefficients:
+    fixed leg          (1, beta, 0)           prior ... target
+    variational leg    (beta, beta, 1 - beta) target ... N(q_mean, q_std)
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..chains import Chains, flatten_params_batch
+from .chees import AdamState, _adam_step, _chees_transition_rungs, halton_sequence
+from .hmc import hmc_step
+from .nuts import DualAveragingState, Metric, da_init, da_update
+
+# rows per batch of the final pass that turns recorded draws into Chains
+_POST_CHUNK = 2**17
+
+
+def apply_deo_swap(theta, ll, accept_swap, labels=None):
+    """Apply one deterministic-even-odd swap pass to the ladder.
+
+    theta (W, NT, D), ll (W, NT); accept_swap is the per-pair accept mask
+    (W, NT - 1). Each rung takes its right neighbour (its own pair
+    accepted), else its left neighbour (the previous pair accepted), else
+    stays: a gather along the rung axis. Returns (theta, ll, idx) with idx
+    the applied index map; with a replica-label array, (theta, ll, idx,
+    labels), the labels carried the same way."""
+    W, NT = ll.shape
+    pad = torch.zeros((W, 1), dtype=torch.bool, device=ll.device)
+    swap_right = torch.cat([accept_swap, pad], dim=1)  # pair j
+    swap_left = torch.cat([pad, accept_swap], dim=1)   # pair j - 1
+    base = torch.arange(NT, device=ll.device).expand(W, NT)
+    idx = torch.where(swap_right, base + 1, torch.where(swap_left, base - 1, base))
+    theta = torch.gather(theta, 1, idx[:, :, None].expand_as(theta))
+    ll = torch.gather(ll, 1, idx)
+    if labels is None:
+        return theta, ll, idx
+    return theta, ll, idx, torch.gather(labels, 1, idx)
+
+
+def _gauss_logpdf(theta_t, q_mean, q_log_std):
+    """log N(theta_t; q_mean, diag(exp(q_log_std))^2): (..., D) -> (...)."""
+    z = (theta_t - q_mean) * torch.exp(-q_log_std)
+    return (
+        -0.5 * torch.sum(z * z, dim=-1)
+        - torch.sum(q_log_std)
+        - 0.5 * theta_t.shape[-1] * math.log(2 * math.pi)
+    )
+
+
+def _make_annealed_vg(model):
+    """Value, log-likelihood and gradient of the per-rung annealed density.
+
+    vg(theta_t (C, D), coeffs (C, 3), q_mean (D,), q_log_std (D,)) ->
+    (value (C,), ll (C,), grad (C, D)), one autograd pass over the batch.
+    A row whose coefficient of a component is 0 gets no term from it, and
+    no gradient either: the component is evaluated there on a detached
+    copy of the row, so a non-finite component (ll = -inf on the prior
+    rung) cannot send 0 * NaN back into the row's gradient."""
+
+    def vg(theta_t, coeffs, q_mean, q_log_std):
+        theta_t = model.tensor(theta_t).detach().requires_grad_(True)
+        use = coeffs != 0
+        with torch.enable_grad():
+            def row_input(k):
+                return torch.where(use[:, k, None], theta_t, theta_t.detach())
+
+            lp_prior = model.ln_prior_transformed(row_input(0))
+            ll = model.ln_like_nt(model.arr2nt(model.invlink(row_input(1))))
+            ll = torch.where(torch.isfinite(ll), ll, -torch.inf)
+            lq = _gauss_logpdf(row_input(2), q_mean, q_log_std)
+            value = (torch.where(use[:, 0], coeffs[:, 0] * lp_prior, 0.0)
+                     + torch.where(use[:, 1], coeffs[:, 1] * ll, 0.0)
+                     + torch.where(use[:, 2], coeffs[:, 2] * lq, 0.0))
+            (grad,) = torch.autograd.grad(value.sum(), theta_t)
+        return value.detach(), ll.detach(), grad
+
+    return vg
+
+
+def _components(model, theta_t, q_mean, q_log_std):
+    """Per-row density components (ln_prior_t, ll, log q): (C, D) -> (C, 3)."""
+    with torch.no_grad():
+        lp = model.ln_prior_transformed(theta_t)
+        ll = model.ln_like_nt(model.arr2nt(model.invlink(theta_t)))
+        ll = torch.where(torch.isnan(ll), -torch.inf, ll)
+        lq = _gauss_logpdf(theta_t, q_mean, q_log_std)
+    return torch.stack([lp, ll, lq], dim=-1)
+
+
+def _rung_coeffs(betas_fix, betas_var, q_active: bool):
+    """(N_tot, 3) density coefficients over (ln_prior, ll, log q)."""
+    bf = np.asarray(betas_fix)
+    c_fix = np.stack([np.ones_like(bf), bf, np.zeros_like(bf)], axis=-1)
+    bv = np.asarray(betas_var)
+    if bv.size == 0:
+        return c_fix
+    if q_active:
+        c_var = np.stack([bv, bv, 1.0 - bv], axis=-1)
+    else:
+        # before the first tuning round the variational leg anneals to
+        # the prior too (mirror of the fixed leg)
+        c_var = np.stack([np.ones_like(bv), bv, np.zeros_like(bv)], axis=-1)
+    return np.concatenate([c_fix, c_var], axis=0)
+
+
+def _pt_save_checkpoint(path, state: dict):
+    """Round-boundary checkpoint of every loop-carried quantity, so that a
+    resumed run is bit-identical to an uninterrupted one. The keys are the
+    JAX package's, with the torch generator's state (`generator_state`)
+    where it saves its key."""
+    np.savez(
+        path,
+        theta=state["theta"].cpu().numpy(),
+        betas=np.asarray(state["betas"]),
+        betas_var=np.asarray(state["betas_var"]),
+        eps=np.exp(state["da"].log_eps),
+        sigma_diag=np.asarray(state["sigma_diag"]),
+        labels=state["labels"].cpu().numpy(),
+        direction=state["direction"].cpu().numpy(),
+        n_round_trips=state["n_round_trips"],
+        sweep_counter=state["sweep_counter"],
+        next_round=state["next_round"],
+        da=np.stack([np.asarray(leaf, dtype=float) for leaf in state["da"]], axis=1),
+        log_T=np.asarray(state["log_T"]),
+        adam=np.stack([np.asarray(leaf, dtype=float) for leaf in state["adam"]], axis=1),
+        q_mean=np.asarray(state["q_mean"]),
+        q_log_std=np.asarray(state["q_log_std"]),
+        q_active=bool(state["q_active"]),
+        generator_state=state["generator"].get_state().numpy(),
+    )
+
+
+def pt_state_from_npz(z) -> dict:
+    """The resume state held in a loaded checkpoint (`np.load` of a file of
+    either package): every key but the random state, as numpy arrays and
+    host numbers."""
+    da_arr = np.asarray(z["da"], dtype=np.float64)     # (NT, 5)
+    adam_arr = np.asarray(z["adam"], dtype=np.float64)  # (NT, 3)
+    return dict(
+        theta=np.asarray(z["theta"]),
+        betas=np.asarray(z["betas"], dtype=np.float64),
+        betas_var=np.asarray(z["betas_var"], dtype=np.float64),
+        sigma_diag=np.asarray(z["sigma_diag"], dtype=np.float64),
+        labels=np.asarray(z["labels"]),
+        direction=np.asarray(z["direction"]),
+        n_round_trips=int(z["n_round_trips"]),
+        sweep_counter=int(z["sweep_counter"]),
+        next_round=int(z["next_round"]),
+        da=DualAveragingState(*(da_arr[:, i].copy() for i in range(5))),
+        log_T=np.asarray(z["log_T"], dtype=np.float64),
+        adam=AdamState(*(adam_arr[:, i].copy() for i in range(3))),
+        q_mean=np.asarray(z["q_mean"], dtype=np.float64),
+        q_log_std=np.asarray(z["q_log_std"], dtype=np.float64),
+        q_active=bool(z["q_active"]),
+    )
+
+
+def _pt_load_checkpoint(path) -> dict:
+    with np.load(path) as z:
+        state = pt_state_from_npz(z)
+        state["generator_state"] = torch.from_numpy(np.asarray(z["generator_state"]).copy())
+    return state
+
+
+def _stepping_stone(lls, betas):
+    """Stepping-stone log-evidence from loglikes (S, W, N) at the fixed
+    leg's rungs `betas` (N,)."""
+    log_z = 0.0
+    for i in range(len(betas) - 1):
+        x = (betas[i + 1] - betas[i]) * lls[:, :, i].reshape(-1)
+        x = x[np.isfinite(x)]
+        if len(x):
+            mx = x.max()
+            log_z += mx + np.log(np.mean(np.exp(x - mx)))
+    return log_z
+
+
+def _post_columns(model, flat_t):
+    """Named columns (n,) of every scalar variable, log prior and log
+    likelihood of the draws `flat_t` (n, D), in batches of _POST_CHUNK rows."""
+    cols, lps, lls = {}, [], []
+    with torch.no_grad():
+        for start in range(0, len(flat_t), _POST_CHUNK):
+            part = flat_t[start:start + _POST_CHUNK]
+            n = len(part)
+            nts = model.arr2nt(model.invlink(part))
+            lps.append(model.ln_prior_transformed(part).cpu().numpy())
+            lls.append(model.ln_like_nt(nts).cpu().numpy())
+            for k, v in flatten_params_batch(nts).items():
+                if v.ndim == 0:  # a constant: the same for every draw
+                    v = np.broadcast_to(v, (n,))
+                if v.ndim == 1:
+                    cols.setdefault(k, []).append(v)
+    return ({k: np.concatenate(v) for k, v in cols.items()},
+            np.concatenate(lps), np.concatenate(lls))
+
+
+def octofit_pigeons(
+    model,
+    *,
+    generator: torch.Generator | None = None,
+    n_rounds: int = 10,
+    n_chains: int = 16,
+    n_chains_variational: int = 0,
+    variational_first_tuning_round: int = 5,
+    n_walkers: int = 32,
+    explorer: str = "nuts",
+    explorer_max_depth: int = 8,
+    explorer_n_leapfrog: int = 64,
+    target_accept: float = 0.8,
+    verbosity: int = 1,
+    checkpoint: str | None = None,
+    resume=None,
+    mesh=None,
+):
+    """Parallel-tempered sampling; returns (Chains, pt_info dict).
+
+    The JAX package's signature and defaults, with a `torch.Generator` on
+    the model's device in place of its key (default: seed 0). n_chains
+    rungs between prior and posterior, rounds double in length; n_walkers
+    independent ladders run as one batch.
+
+    n_chains_variational > 0 adds the stabilized-variational-PT leg
+    (Surjanovic et al. 2022): `prior <-> target | target <-> N(m, s)`,
+    with the diagonal Gaussian moment-matched to the target rungs at the
+    end of every round from `variational_first_tuning_round` on. The two
+    target rungs swap always; draws are recorded from both.
+
+    checkpoint: path; after every non-final round the full state is saved
+    there (npz), after the final one to "<checkpoint>.final.npz". resume:
+    the path of such a file, or a state dict (`interop.load_jax_pt_
+    checkpoint` makes one from a JAX checkpoint); the run continues
+    mid-schedule, bit-identical to an uninterrupted run with the same
+    n_rounds and device.
+
+    explorer: "chees" (per-rung shared-trajectory ChEES-HMC, the W walkers
+    of a rung sharing one Halton-jittered trajectory whose length each
+    rung adapts by Adam) or "hmc" (jittered-trajectory HMC with up to
+    explorer_n_leapfrog steps). The JAX default, "nuts", and `mesh=` are
+    not ported and raise NotImplementedError.
+
+    Besides the JAX package's info keys, info holds "logevidence_se" (the
+    standard error of the log-evidence that the spread of the estimates of
+    up to 8 disjoint walker groups gives), and for the rounds this call
+    ran: "n_grad_evals" (batched annealed value-and-gradient evaluations),
+    "n_sweeps" and "rounds" (per round its sweeps, seconds, the longest and
+    median per-rung leapfrog count over its sweeps, barriers, and round
+    trips so far).
+    """
+    if explorer == "nuts":
+        raise NotImplementedError(
+            "explorer='nuts' (per-replica NUTS trees) is not ported to "
+            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 12); use "
+            "explorer='chees' or 'hmc'"
+        )
+    if explorer not in ("chees", "hmc"):
+        raise ValueError(f"unknown explorer {explorer!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (a ladder sharded across devices) is not ported to "
+            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 18)"
+        )
+    if n_chains_variational == 1:
+        # a single variational rung would be a recorded target rung
+        # whose state is IID-refreshed from the reference every sweep
+        raise ValueError(
+            "n_chains_variational must be 0 or >= 2 (a 1-rung "
+            "variational leg would record raw reference draws)"
+        )
+    del explorer_max_depth  # the NUTS explorer's; not ported
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    D = model.D
+    W, N, Nv = n_walkers, n_chains, n_chains_variational
+    NT = N + Nv  # total rungs in the (possibly extended) ladder
+    C = W * NT
+    dev, dtype = model.device, model.dtype
+    annealed_vg = _make_annealed_vg(model)
+
+    def host_tensor(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    # --- initial states: the model's starting points when initialized,
+    # prior draws otherwise; the prior rung is IID-refreshed every sweep
+    pts = model.starting_points
+    if pts is not None:
+        idx0 = torch.randint(len(pts), (C,), generator=generator, device=generator.device)
+        theta = pts[idx0.to(pts.device)].reshape(W, NT, D)
+    else:
+        theta = model.link(model.sample_priors(generator, C)).reshape(W, NT, D)
+
+    # per-leg annealing schedules (host side); rung order is
+    # [prior ... target | target ... variational reference]
+    betas_fix = np.linspace(0.0, 1.0, N)
+    betas_var = np.linspace(1.0, 0.0, Nv) if Nv else np.zeros((0,))
+    q_mean = np.zeros(D)
+    q_log_std = np.zeros(D)
+    q_active = False
+
+    # per-rung explorer adaptation (host, elementwise over rungs); the
+    # Laplace covariance from initialization seeds the diagonal metric
+    eps0 = np.full(NT, 0.05)
+    if model.laplace_sigma is not None:
+        sd0 = np.clip(np.diag(model.laplace_sigma.cpu().double().numpy()), 1e-6, None)
+        sigma_diag = np.tile(sd0[None, :], (NT, 1))
+    else:
+        sigma_diag = np.ones((NT, D))
+
+    # replica labels at each rung slot, and each replica's direction
+    labels = np.tile(np.arange(NT), (W, 1))
+    direction = np.zeros((W, NT), int)
+    direction[:, 0] = 1
+    direction[:, -1] = -1
+
+    t_start = time.perf_counter()
+    da = da_init(eps0)
+    adam = AdamState(np.zeros(NT), np.zeros(NT), np.zeros(NT))
+    log_T = np.full(NT, math.log(16.0 * eps0[0]))
+    # Halton jitter for the shared trajectory, indexed by the global sweep
+    # counter so a resumed run is bit-identical
+    halton = halton_sequence(2 ** (n_rounds + 1))
+    sweep_counter = 0
+    start_round = 0
+    n_round_trips = 0
+
+    if resume is not None:
+        st = resume if isinstance(resume, dict) else _pt_load_checkpoint(os.fspath(resume))
+        if tuple(st["theta"].shape) != (W, NT, D):
+            raise ValueError(
+                f"checkpoint shape {tuple(st['theta'].shape)} does not match "
+                f"(n_walkers={W}, n_rungs={NT}, D={D})"
+            )
+        theta = model.tensor(st["theta"])
+        betas_fix, betas_var = st["betas"], st["betas_var"]
+        sigma_diag = st["sigma_diag"]
+        labels, direction = st["labels"], st["direction"]
+        n_round_trips = st["n_round_trips"]
+        sweep_counter = st["sweep_counter"]
+        da, adam, log_T = st["da"], st["adam"], st["log_T"]
+        q_mean, q_log_std, q_active = st["q_mean"], st["q_log_std"], st["q_active"]
+        generator.set_state(st["generator_state"])
+        start_round = st["next_round"]
+        if start_round >= n_rounds:
+            raise ValueError(
+                f"checkpoint has already completed {start_round} rounds; "
+                f"pass n_rounds > {start_round} to escalate the run"
+            )
+        if verbosity >= 1:
+            print(f"octofit_pigeons: resumed at round {start_round + 1}")
+
+    labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64, device=dev)
+    direction = torch.as_tensor(np.asarray(direction), dtype=torch.int64, device=dev)
+    trips = torch.as_tensor(int(n_round_trips), dtype=torch.int64, device=dev)
+    rungs = torch.arange(NT, device=dev)[None, :]
+
+    samples_final, ll_by_temp_final = [], []
+    rounds_info = []
+    rejection = np.zeros(NT - 1)
+    barrier = barrier_var = None
+    n_grad_evals = 0
+    log_T_record = log_T
+    for rnd in range(start_round, n_rounds):
+        t_round = time.perf_counter()
+        n_sweeps = 2 ** (rnd + 1)
+        record = rnd == n_rounds - 1
+        coeffs = _rung_coeffs(betas_fix, betas_var, q_active)
+        coeff_rows = host_tensor(coeffs).repeat(W, 1)
+        dc = host_tensor(coeffs[1:] - coeffs[:-1])  # (NT - 1, 3)
+        qm, qls = host_tensor(q_mean), host_tensor(q_log_std)
+        sigma_t = host_tensor(sigma_diag)
+
+        def vg_batch(Theta):
+            value, _, grad = annealed_vg(Theta, coeff_rows, qm, qls)
+            return value, grad
+
+        # per-round accumulators: moments for the explorer metric, swap
+        # attempt / rejection counts
+        s1 = torch.zeros((NT, D), dtype=dtype, device=dev)
+        s2 = torch.zeros((NT, D), dtype=dtype, device=dev)
+        rej = torch.zeros((NT - 1,), dtype=dtype, device=dev)
+        att = np.zeros(NT - 1)
+        # the recording round samples with FROZEN tuning while the
+        # adaptation keeps updating in the background, so the
+        # "<checkpoint>.final.npz" continuation state is adapted too
+        eps_frozen, log_T_frozen = np.exp(da.log_eps), log_T
+        if record:
+            log_T_record = log_T_frozen
+        L_round = []
+
+        for _ in range(n_sweeps):
+            i0 = sweep_counter % 2
+            u = float(halton[sweep_counter % len(halton)])
+            eps_used = eps_frozen if record else np.exp(da.log_eps)
+            log_T_used = log_T_frozen if record else log_T
+
+            # --- explore: one transition of every chain of the ladder
+            Theta = theta.reshape(C, D)
+            lp, grad = vg_batch(Theta)
+            if explorer == "chees":
+                L = np.clip(np.ceil(u * np.exp(log_T_used) / eps_used), 1,
+                            explorer_n_leapfrog).astype(np.int64)
+                Theta, alpha, g_logT = _chees_transition_rungs(
+                    vg_batch, Theta, lp, grad, generator, host_tensor(eps_used),
+                    sigma_t, L, u, NT)
+                n_grad_evals += 1 + int(L.max())
+            else:
+                L = np.full(NT, explorer_n_leapfrog)
+                eps_rows = host_tensor(eps_used).repeat(W)[:, None]
+                sigma_rows = sigma_t.repeat(W, 1)
+                Theta, _, _, stats = hmc_step(
+                    vg_batch, Theta, lp, grad, generator, eps_rows,
+                    Metric(sigma_rows, torch.sqrt(sigma_rows)), explorer_n_leapfrog)
+                alpha, g_logT = stats.acceptance_rate, torch.zeros_like(lp[:NT])
+                n_grad_evals += 1 + explorer_n_leapfrog
+            L_round.append(L)
+            theta = Theta.reshape(W, NT, D)
+
+            # --- regenerate the reference rungs IID: rung 0 from the
+            # prior, the far end from the Gaussian reference once active
+            theta[:, 0, :] = model.link(model.sample_priors(generator, W))
+            if Nv:
+                if q_active:
+                    z = torch.randn((W, D), generator=generator, dtype=dtype,
+                                    device=generator.device)
+                    theta[:, NT - 1, :] = qm + torch.exp(qls) * z
+                else:
+                    theta[:, NT - 1, :] = model.link(model.sample_priors(generator, W))
+
+            F = _components(model, theta.reshape(C, D), qm, qls).reshape(W, NT, 3)
+            ll = F[:, :, 1]
+
+            # --- one deterministic even/odd swap pass over the ladder;
+            # log alpha = (c_{i+1} - c_i) . (F_i - F_{i+1}); the
+            # target|target pair has dc = 0, so it always accepts
+            active = (np.arange(NT - 1) % 2) == i0
+            dF = F[:, :-1, :] - F[:, 1:, :]
+            log_alpha = torch.where(dc != 0, dc * dF, 0.0).sum(-1)  # (W, NT - 1)
+            u_sw = torch.rand((W, NT - 1), generator=generator, dtype=dtype,
+                              device=generator.device)
+            active_t = torch.as_tensor(active, device=dev)
+            accept_swap = active_t[None, :] & (torch.log(u_sw) < log_alpha)
+            theta, ll, _, labels = apply_deo_swap(theta, ll, accept_swap, labels)
+
+            # --- accumulators and round trips (a replica completes a
+            # trip when it returns to the bottom rung while descending)
+            s1 += theta.sum(dim=0)
+            s2 += (theta * theta).sum(dim=0)
+            att += active
+            rej += active_t.to(dtype) * (1.0 - accept_swap.to(dtype).mean(dim=0))
+            at_top = labels[:, -1:] == rungs
+            direction = torch.where(at_top & (direction == 1), -1, direction)
+            completed = (labels[:, 0:1] == rungs) & (direction == -1)
+            trips = trips + completed.sum()
+            direction = torch.where(completed, 1, direction)
+
+            if record:
+                # target rung(s): the fixed leg's at N - 1, and the
+                # variational leg's at N when present
+                samples_final.append(theta[:, N - 1:N + 1].transpose(0, 1).reshape(-1, D)
+                                     if Nv else theta[:, N - 1].clone())
+                ll_by_temp_final.append(ll)
+
+            # --- explorer adaptation, elementwise over rungs, from the
+            # one read of this sweep
+            stacked = torch.cat([alpha.reshape(W, NT).mean(dim=0), g_logT.to(dtype)])
+            acc_mean, g_logT_h = np.split(stacked.cpu().double().numpy(), 2)
+            da = da_update(da, acc_mean, target_accept)
+            if explorer == "chees":
+                adam, dlt = _adam_step(adam, g_logT_h, 0.025)
+                log_T = np.clip(log_T + dlt, da.log_eps,
+                                da.log_eps + math.log(float(explorer_n_leapfrog)))
+            sweep_counter += 1
+
+        # ---- between rounds: read the round's accumulators once, then
+        # adapt the schedule, the explorer metric and the reference
+        s1 = s1.cpu().double().numpy()
+        s2 = s2.cpu().double().numpy()
+        rej_round = rej.cpu().double().numpy()
+        n_round_trips = int(trips)
+        s_count = n_sweeps * W
+        r = np.where(att > 0, rej_round / np.maximum(att, 1), 0.0)
+        r = np.clip(r, 1e-4, 1 - 1e-4)
+        rejection = r
+        # per-leg communication barriers (the boundary pair N - 1 is the
+        # deterministic target|target swap and belongs to neither leg)
+        r_fix = r[: N - 1]
+        lam = np.concatenate([[0.0], np.cumsum(r_fix)])
+        barrier = lam[-1]
+        if Nv:
+            r_var = r[N:]
+            barrier_var = np.concatenate([[0.0], np.cumsum(r_var)])[-1]
+        if record:
+            # the schedule the recording round sampled with: reported in
+            # info and used by the evidence estimator
+            betas_report = np.asarray(betas_fix).copy()
+            betas_var_report = np.asarray(betas_var).copy()
+        # Syed et al. schedule update per leg: equalize rejection (after
+        # the recording round too, for the continuation state)
+        targets = np.linspace(0, lam[-1], N)
+        new_b = np.interp(targets, lam, betas_fix)
+        new_b[0], new_b[-1] = 0.0, 1.0
+        betas_fix = np.sort(new_b)
+        if Nv:
+            # the variational leg runs beta 1 -> 0; adapt in ascending coords
+            asc = betas_var[::-1]
+            lam_asc = np.concatenate([[0.0], np.cumsum(r_var[::-1])])
+            targets_v = np.linspace(0, lam_asc[-1], Nv)
+            new_v = np.interp(targets_v, lam_asc, asc)
+            new_v[0], new_v[-1] = 0.0, 1.0
+            betas_var = np.sort(new_v)[::-1].copy()
+        # diagonal metric per rung from the (sweeps x walkers) spread
+        if s_count > 4:
+            with np.errstate(invalid="ignore", over="ignore"):
+                mean = s1 / s_count
+                var = s2 / s_count - mean**2
+            # extreme unconstrained prior draws on the reference rung can
+            # overflow the moment sums (float32): fall back to a unit-ish
+            # metric there instead of NaN scales
+            var = np.nan_to_num(var, nan=1.0, posinf=1e6, neginf=1.0)
+            var = np.clip(var, 1e-6, None)
+            shrink = s_count / (s_count + 5.0)
+            sigma_diag = shrink * var + 1e-3 * (1 - shrink)
+        # moment-match the Gaussian reference to the target rungs
+        if Nv and rnd + 1 >= variational_first_tuning_round and s_count > 4:
+            rows = [N - 1, N]
+            m = s1[rows].sum(0) / (len(rows) * s_count)
+            v = s2[rows].sum(0) / (len(rows) * s_count) - m**2
+            v = np.clip(v, 1e-8, None)
+            q_mean = m
+            q_log_std = 0.5 * np.log(v)
+            q_active = True
+
+        L_round = np.stack(L_round)
+        rounds_info.append(dict(
+            round=rnd + 1, sweeps=n_sweeps, seconds=time.perf_counter() - t_round,
+            L_longest=int(L_round.max()), L_median=float(np.median(L_round)),
+            barrier=float(barrier),
+            barrier_variational=float(barrier_var) if Nv else None,
+            round_trips=n_round_trips,
+        ))
+        if verbosity >= 2:
+            extra = f", var barrier {barrier_var:.2f}" if Nv else ""
+            print(
+                f"PT round {rnd + 1}/{n_rounds}: {n_sweeps} sweeps in "
+                f"{rounds_info[-1]['seconds']:.2f} s, leapfrog steps longest "
+                f"{int(L_round.max())} / median {float(np.median(L_round)):g}, "
+                f"barrier {barrier:.2f}{extra}, round trips {n_round_trips}"
+            )
+
+        if checkpoint is not None:
+            _pt_save_checkpoint(
+                checkpoint + ".final.npz" if record else checkpoint,
+                dict(
+                    theta=theta, betas=betas_fix, betas_var=betas_var,
+                    sigma_diag=sigma_diag, labels=labels, direction=direction,
+                    n_round_trips=n_round_trips, sweep_counter=sweep_counter,
+                    next_round=rnd + 1, da=da, log_T=log_T, adam=adam,
+                    q_mean=q_mean, q_log_std=q_log_std, q_active=q_active,
+                    generator=generator,
+                ),
+            )
+
+    if theta.is_cuda:
+        torch.cuda.synchronize(theta.device)
+    t_total = time.perf_counter() - t_start
+
+    # ------------------------------------------------------------------
+    # stepping-stone log evidence from the recording round's loglikes on
+    # the FIXED (prior-referenced) leg; the variational leg's reference is
+    # not normalized against the prior
+    lls = torch.stack(ll_by_temp_final).cpu().double().numpy()  # (S, W, NT)
+    log_z = _stepping_stone(lls[:, :, :N], betas_report)
+    groups = np.array_split(np.arange(W), min(W, 8))
+    group_z = [_stepping_stone(lls[:, g, :N], betas_report) for g in groups]
+    log_z_se = np.std(group_z, ddof=1) / math.sqrt(len(groups)) if W > 1 else np.nan
+
+    # ------------------------------------------------------------------
+    samples = torch.stack(samples_final).transpose(0, 1)  # (2W or W, S, D)
+    Wn, S, _ = samples.shape
+    cols, lp, ll = _post_columns(model, samples.reshape(-1, D))
+    data = {k: v.reshape(Wn, S) for k, v in cols.items()}
+    internals = {
+        "logprior": lp.reshape(Wn, S),
+        "loglike": ll.reshape(Wn, S),
+        "logpost": (lp + ll).reshape(Wn, S),
+    }
+    info = {
+        "sampler": "pt_deo",
+        "explorer": explorer,
+        "trajectory_length": np.exp(log_T_record),
+        "model_name": model.system.name,
+        "logevidence": float(log_z),
+        "logevidence_se": float(log_z_se),
+        "global_barrier": float(barrier),
+        "n_round_trips": n_round_trips,
+        "betas": betas_report,
+        "swap_rejection": rejection,
+        "sampling_time_s": t_total,
+        "n_grad_evals": n_grad_evals,
+        "n_sweeps": sum(r["sweeps"] for r in rounds_info),
+        "rounds": rounds_info,
+    }
+    if Nv:
+        info["betas_variational"] = betas_var_report
+        info["global_barrier_variational"] = (
+            float(barrier_var) if barrier_var is not None else np.nan
+        )
+        info["variational_mean"] = np.asarray(q_mean)
+        info["variational_std"] = np.exp(np.asarray(q_log_std))
+    if verbosity >= 1:
+        print(
+            f"octofit_pigeons: {n_rounds} rounds, barrier {barrier:.2f}, "
+            f"{n_round_trips} round trips, log-evidence {log_z:.2f} "
+            f"({t_total:.1f}s on {dev})"
+        )
+    return Chains(data, internals, info), info
