@@ -30,8 +30,8 @@ non-zero:
    quick-start relative astrometry, 12 epochs, 2 mas noise, seed 0) in
    float32 on the GPU, checked against a float64 CPU model, then
    `octofit` with initialization at 4096 chains, 700 adaptation steps
-   (as the bench) and 1000 draws (the bench's 3000, cut to keep the
-   run to a few minutes); checks finite draws, max split-R-hat < 1.05
+   (as the bench) and 300 draws (the bench's 3000, cut to keep the
+   whole script inside its time limit); checks finite draws, max split-R-hat < 1.05
    by the device diagnostics, the posterior median of b_a within 5 sd of
    the true 7.0, and that all three kernels were launched (the standalone
    Kepler kernel by the Laplace step, the fused pair on every gradient
@@ -44,14 +44,23 @@ non-zero:
 7. fused vs composed: one batched `ln_post_and_grad` at 4096 chains
    through the fused kernels and through the composed path, in turns,
    with CUDA events and the host clock;
-8. joint path: `examples/02_joint_astrom_pma_rv.py`'s model (relative
+8. NUTS and HMC: `octofit(sampler="nuts")` on the headline model that 5
+   initialized, 32 chains, 100 adaptation steps + 50 draws, max_depth 8,
+   float32, each chain adapting its own step size and dense metric; prints
+   the batched evaluations per transition beside the mean leaves per chain
+   (the cost of the lockstep); gates: max split-R-hat < 1.05 by the device
+   diagnostics, finite draws, the medians of b_a and b_e within 5 sd of the
+   truth, the fused pair launched on every evaluation; then a short
+   `sampler="hmc"` run (32 chains, 50 + 50, max_depth 4) with finite draws and
+   acceptance in (0, 1];
+9. joint path: `examples/02_joint_astrom_pma_rv.py`'s model (relative
    astrometry, HGCA with N_ave = 5, zero-point-marginalized RV; 70 epochs,
    D = 15), its data made from seed 0 with the port's orbitsolve on the
    CPU in float64, in float32 on the GPU, checked against a float64 CPU
    model, then `octofit` as in 5 with the same gates, the posterior
    medians of b_mass and b_a within 5 sd of 12 Mjup and 9 AU, and the
    Kepler kernel held to its twin at the shapes this run launched it with;
-9. partial-arc parallel tempering (`bench.py:218-296`): the headline
+10. partial-arc parallel tempering (`bench.py:218-296`): the headline
    model on a 600-day arc (MJD 56,800-57,400) in float32 on the GPU,
    checked against a float64 CPU model, `initialize` with the default
    sizes, then `octofit_pigeons` with the bench's `_PA_KWARGS` (4096
@@ -65,7 +74,19 @@ non-zero:
    Laplace step and the fused pair on every annealed evaluation and
    components pass; then the Kepler kernel held to its twin at the shapes
    this run launched it with;
-10. diagnostics: `ess_rhat_batch_device` on the card against the numpy
+11. PT with the NUTS explorer: `octofit_pigeons` on the partial-arc model
+   that 10 initialized, the same ladder at 256 walkers, explorer="nuts"
+   with explorer_max_depth 8, 3 rounds; gates: finite draws, log-evidence
+   and barriers, every rung's explorer acceptance in (0, 1], the fused pair
+   on every annealed evaluation;
+12. OFTI rejection (`examples/09_ofti_rejection.py`): the model with the
+   Thiele-Innes constants marginalized by `ofti_linear_solve`, float64 on
+   the GPU checked against the CPU model, `octofit_rejection` with 20,000
+   draws in batches of 500,000; gates: 20,000 draws, the medians of e, a, M
+   and plx within 5 sd of the truth, the standalone Kepler kernel launched
+   once per batch at (500,000, 8); then the Kepler kernel held to its twin
+   at the shapes this run launched it with, in both precisions, and timed;
+13. diagnostics: `ess_rhat_batch_device` on the card against the numpy
    oracle `ess_rhat_batch`, both timed, on the headline and joint draws
    and on a synthetic case past S = 2^23 draws with ties.
 
@@ -76,7 +97,10 @@ for `kepler_solve`, the largest over the 14 fields in their own units for
 `orbit_solve_bwd`; `kepler_solve` also carries the composed path's
 (chains, 12) shape under `composed_*` keys), and at the joint path's
 shape under `joint_*` keys, and at the partial-arc PT path's under `pt_*`
-keys, each with that path's launches; the last is
+keys, each with that path's launches, with the launches of the NUTS, HMC,
+PT-NUTS and rejection paths, the fused pair at the NUTS path's shape under
+`nuts_*` keys and the Kepler kernel at the rejection path's bulk shape, in
+float64, under `rejection_*` keys; the last is
 `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -100,7 +124,12 @@ JOINT_TRUE = dict(a=9.0, e=0.1, i=0.6, omega=1.0, Omega=2.0, tp=56500.0, M=1.6, 
 JOINT_MASS = 12.0
 JOINT_EPOCHS = 70
 JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
-CHAINS, ADAPTATION, ITERATIONS = 4096, 700, 1000
+CHAINS, ADAPTATION, ITERATIONS = 4096, 700, 300
+# NUTS and jittered HMC (`octofit(sampler="nuts" | "hmc")`) on the headline
+# model the ChEES phase initialized: every chain adapts its own step size
+# and dense metric, all chains step in lockstep
+NUTS_CHAINS, NUTS_ADAPTATION, NUTS_ITERATIONS, NUTS_MAX_DEPTH = 32, 100, 50, 8
+HMC_ADAPTATION, HMC_ITERATIONS, HMC_MAX_DEPTH = 50, 50, 4
 # the partial-arc parallel-tempering fit (`bench.py:218-296`): the
 # headline model with its 12 epochs on a 600-day arc, sampled with the
 # bench's `_PA_KWARGS` (4096 walkers x (8 + 8) rungs, ChEES explorer); the
@@ -118,6 +147,18 @@ PT_ROUNDS = 6
 # target|target pair) accepts at least 1% of its swaps.
 SWAP_REJECTION_MAX = 0.99
 PT_CHAINS = PA_KWARGS["n_walkers"] * (PA_KWARGS["n_chains"] + PA_KWARGS["n_chains_variational"])
+# the same ladder with the JAX package's default explorer, NUTS, at fewer
+# walkers and rounds
+PT_NUTS_KWARGS = dict(PA_KWARGS, explorer="nuts", explorer_max_depth=8, n_walkers=256)
+PT_NUTS_ROUNDS = 3
+PT_NUTS_CHAINS = PT_CHAINS // PA_KWARGS["n_walkers"] * PT_NUTS_KWARGS["n_walkers"]
+
+# the OFTI workflow (`examples/09_ofti_rejection.py`): 8 epochs of relative
+# astrometry, the Thiele-Innes constants marginalized analytically, sampled
+# by rejection from the prior in float64 at the example's sizes
+OFTI_TRUE = dict(a=10.0, e=0.3, i=1.0, omega=0.5, Omega=2.0, tp=50000.0, M=1.2, plx=50.0)
+OFTI_EPOCHS = 8
+REJECTION_KWARGS = dict(num_samples=20_000, batch_size=500_000, max_batches=20)
 
 # Tolerances for kernel vs twin, absolute on E. The float32 bound is the
 # Pallas kernel's test bound (tests/test_kepler.py). Both grow with |M|/50
@@ -360,12 +401,14 @@ def forward_instantiation(t, out) -> int:
 def orbit_phase(osk, elements, chains: int) -> dict:
     """Fused forward and backward kernels against their plain versions on
     the card, then their timings. Returns, per kernel, the float32 error
-    and timings at the headline's shape, the joint fit's, the partial-arc
-    ladder's (all its walkers and rungs, on its 600-day arc) and the large
-    one."""
+    and timings at the headline's shape (also the NUTS explorer's ladder's,
+    256 walkers x 16 rungs), the NUTS path's, the joint fit's, the
+    partial-arc ladder's (all its walkers and rungs, on its 600-day arc) and
+    the large one."""
     res = {"fwd": {}, "bwd": {}}
     headline_grid = (55000.0, 59500.0)
     shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS, None, headline_grid),
+              (f"({NUTS_CHAINS}, {N_EPOCHS})", NUTS_CHAINS, N_EPOCHS, None, headline_grid),
               (f"({chains}, {JOINT_EPOCHS})", chains, JOINT_EPOCHS, JOINT_SPAN, None),
               (f"({PT_CHAINS}, {N_EPOCHS})", PT_CHAINS, N_EPOCHS, None, PA_SPAN),
               (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS, None, headline_grid))
@@ -613,6 +656,52 @@ def build_joint_model(ot, data, **model_kw):
     return ot.LogDensityModel(system, verbosity=0, **model_kw)
 
 
+def ofti_data(ot) -> dict:
+    """`examples/09_ofti_rejection.py:build_model`'s data, made line by line
+    as there (seed 42, 8 epochs, 10 mas noise) with the port's orbitsolve
+    on the CPU in float64."""
+    epochs = np.linspace(50000.0, 50840.0, OFTI_EPOCHS)
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**OFTI_TRUE), epochs)
+    rng = np.random.default_rng(42)
+    ra = ot.orbits.raoff(sol).numpy() + rng.standard_normal(OFTI_EPOCHS) * 10.0
+    dec = ot.orbits.decoff(sol).numpy() + rng.standard_normal(OFTI_EPOCHS) * 10.0
+    return dict(epochs=epochs, ra=ra, dec=dec, s_ra=np.full(OFTI_EPOCHS, 10.0),
+                s_dec=np.full(OFTI_EPOCHS, 10.0), cor=np.zeros(OFTI_EPOCHS))
+
+
+def build_ofti_model(ot, data, **model_kw):
+    """`examples/09_ofti_rejection.py:build_model`'s model with the port's
+    API: 5 nonlinear parameters (M, plx, e, a, tau), the Thiele-Innes
+    constants marginalized by `ofti_linear_solve` (prior width 1000 mas)
+    into a `DirectLL`, and tp derived from tau."""
+    from octofitter_tpu_torch.constants import KEPLER_YEAR_DAYS
+
+    dist = ot.distributions
+    epochs = data["epochs"]
+
+    def tp(s):
+        return epochs[0] + s.tau * torch.sqrt(s.a**3 / s.M) * KEPLER_YEAR_DAYS
+
+    def ofti(s):
+        return ot.ofti_linear_solve(epochs, data["ra"], data["dec"], data["s_ra"], data["s_dec"],
+                                    data["cor"], 1000.0, s.e, s.a, tp(s), s.M, s.plx)
+
+    system = ot.System(
+        name="OFTI_Demo",
+        variables=dict(
+            M=dist.truncated(dist.Normal(1.2, 0.1), lower=0.1),
+            plx=dist.truncated(dist.Normal(50.0, 0.5), lower=0.1),
+            e=dist.Uniform(0.0, 0.99),
+            a=dist.LogUniform(1.0, 100.0),
+            tau=dist.Uniform(0.0, 1.0),
+            ll=lambda s: ofti(s)["log_marginal_likelihood"],
+            tp=tp,
+        ),
+        observations=[ot.DirectLL("ll")],
+    )
+    return ot.LogDensityModel(system, verbosity=0, **model_kw)
+
+
 def joint_points_near_truth(ot, model, n, seed):
     """`n` unconstrained points of the joint model: the truth (RV jitter
     5 m/s) plus N(0, 1e-3) in every coordinate."""
@@ -663,6 +752,16 @@ def headline_points(ot, ref):
     return ref.link(nat) + 1e-3 * torch.randn((64, ref.D), generator=gen, dtype=torch.float64)
 
 
+def _reset_launches(kk, osk) -> None:
+    kk.launches = osk.launches_fwd = osk.launches_bwd = 0
+    kk.launch_shapes.clear()
+
+
+def _launches(kk, osk) -> dict:
+    return {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
+            "orbit_solve_bwd": osk.launches_bwd}
+
+
 def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict:
     """`octofit` with initialization on `model`, with every launch count
     set to 0 just before and read just after, scored by the device
@@ -672,15 +771,13 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
     pair launched on every batched gradient evaluation."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    kk.launches = osk.launches_fwd = osk.launches_bwd = 0
-    kk.launch_shapes.clear()
+    _reset_launches(kk, osk)
     t0 = time.perf_counter()
     chain = ot.octofit(model, chains=chains, adaptation=adaptation,
                        iterations=iterations, generator=gen, verbosity=1)
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
-    launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
-                "orbit_solve_bwd": osk.launches_bwd}
+    launches = _launches(kk, osk)
     kepler_shapes = dict(kk.launch_shapes)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     t_sampling = chain.info["sampling_time_s"]
@@ -779,22 +876,18 @@ def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
     reference_phase("partial arc", model, ref, headline_points(ot, ref))
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
-    kk.launches = osk.launches_fwd = osk.launches_bwd = 0
-    kk.launch_shapes.clear()
+    _reset_launches(kk, osk)
     t0 = time.perf_counter()
     model.initialize(gen, verbosity=1)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    init_launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
-                     "orbit_solve_bwd": osk.launches_bwd}
+    init_launches = _launches(kk, osk)
     kepler_shapes = dict(kk.launch_shapes)
     t_start = time.perf_counter()
     chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=n_rounds, verbosity=1,
                                      **PA_KWARGS)
     torch.cuda.synchronize()
-    t_pt = time.perf_counter() - t_start
-    launches = {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
-                "orbit_solve_bwd": osk.launches_bwd}
+    launches = _launches(kk, osk)
     sampling_launches = {k: launches[k] - init_launches[k] for k in launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -862,7 +955,180 @@ def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
         raise AssertionError(
             f"partial arc: the fused orbit-solve kernels were launched {sampling_launches} times, "
             f"fewer than the {n_evals} gradient evaluations (+ {n_sweeps} components passes)")
-    return {"launches": launches, "kepler_shapes": kepler_shapes, "chain": chain, "x": x}
+    return {"launches": launches, "kepler_shapes": kepler_shapes, "chain": chain, "x": x,
+            "model": model}
+
+
+def nuts_path_phase(ot, kk, osk, model) -> dict:
+    """`octofit(sampler="nuts")` and then a short `octofit(sampler="hmc")` on
+    the headline model that the main path initialized (its starting points,
+    and its Laplace covariance as every chain's first dense metric), in
+    float32, every launch count set to 0 just before each run and read just
+    after. NUTS gates: max split-R-hat < 1.05 by the device diagnostics,
+    finite draws, the medians of b_a and b_e within 5 sd of the truth, the
+    fused pair launched on every batched evaluation. It prints the batched
+    evaluations per sampling transition (per depth, the deepest chain's
+    leaves) beside the mean leaves per chain: their ratio is what the
+    lockstep costs. HMC gates: finite draws, every acceptance in [0, 1] and
+    the mean acceptance in (0, 1], the fused pair on every evaluation."""
+    res = {}
+    runs = (("nuts", NUTS_ADAPTATION, NUTS_ITERATIONS, NUTS_MAX_DEPTH),
+            ("hmc", HMC_ADAPTATION, HMC_ITERATIONS, HMC_MAX_DEPTH))
+    for sampler, adaptation, iterations, max_depth in runs:
+        label = f"{sampler} path"
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(kk, osk)
+        chain = ot.octofit(model, sampler=sampler, chains=NUTS_CHAINS, adaptation=adaptation,
+                           iterations=iterations, max_depth=max_depth, generator=gen, verbosity=1)
+        torch.cuda.synchronize()
+        launches = _launches(kk, osk)
+        t_sampling, n_evals = chain.info["sampling_time_s"], chain.info["n_grad_evals"]
+        x = np.stack([chain[n] for n in model.parameter_names], axis=-1)
+        acc = chain.internals["acceptance_rate"]
+        log(f"{label}: {NUTS_CHAINS} chains, {adaptation} adaptation + {iterations} draws, "
+            f"max_depth {max_depth}, float32")
+        log(f"  sampling {t_sampling:.2f} s, batched gradient evaluations {n_evals} "
+            f"({t_sampling / n_evals * 1e6:.1f} us each), mean acceptance {float(acc.mean()):.4f}, "
+            f"divergences {int(chain.internals['is_divergent'].sum())}")
+        log(f"  kernel launches: {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if not bool(np.isfinite(x).all()):
+            raise AssertionError(f"{label}: non-finite draws")
+        if min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) < n_evals:
+            raise AssertionError(f"{label}: the fused orbit-solve kernels were launched fewer times "
+                                 f"than the {n_evals} gradient evaluations")
+        if sampler == "nuts":
+            te = chain.info["transition_evals"]
+            per_transition = float(te[adaptation:].mean())
+            leaves = float(chain.internals["n_steps"].mean())
+            depth = chain.internals["tree_depth"]
+            log(f"  sampling transitions: {per_transition:.2f} batched evaluations each (the deepest "
+                f"chain's leaves per depth), {leaves:.2f} leaves per chain on average: lockstep "
+                f"costs {per_transition / leaves:.3f}x; tree depth mean {float(depth.mean()):.3f}, "
+                f"max {int(depth.max())}; adaptation transitions {float(te[:adaptation].mean()):.2f} "
+                f"evaluations each")
+            log(f"  step sizes: median {float(np.median(chain.info['step_size'])):.5f}, range "
+                f"[{float(np.min(chain.info['step_size'])):.5f}, "
+                f"{float(np.max(chain.info['step_size'])):.5f}]")
+            ess, rhat = ot.ess_rhat_batch_device(x)
+            k_min = int(np.nanargmin(ess))
+            rhat_max = float(np.nanmax(rhat))
+            log(f"  min rank-normalized ESS {float(ess[k_min]):.1f} on "
+                f"{model.parameter_names[k_min]} ({float(ess[k_min]) / x[..., 0].size:.4f} per "
+                f"draw), max split-R-hat {rhat_max:.5f}, ESS/s {float(ess[k_min]) / t_sampling:.1f}")
+            if not rhat_max < 1.05:
+                raise AssertionError(f"{label}: max split-R-hat {rhat_max} >= 1.05")
+            _gate_median(label, chain, "b_a", TRUE["a"])
+            _gate_median(label, chain, "b_e", TRUE["e"])
+            res.update(launches=launches, n_evals=n_evals, per_transition=per_transition,
+                       leaves=leaves, x=x)
+        else:
+            if not (bool(((acc >= 0) & (acc <= 1)).all()) and 0 < float(acc.mean()) <= 1):
+                raise AssertionError(f"{label}: acceptance outside (0, 1]")
+            res["hmc_launches"] = launches
+    return res
+
+
+def pt_nuts_phase(ot, kk, osk, model) -> dict:
+    """`octofit_pigeons` with the NUTS explorer on the partial-arc model
+    that the PT path initialized: the bench's ladder (8 + 8 rungs) at
+    PT_NUTS_KWARGS' walkers for PT_NUTS_ROUNDS rounds, float32, every launch
+    count set to 0 just before and read just after. Gates: finite draws,
+    log-evidence and barriers, every rung's mean explorer acceptance in the
+    recording round in (0, 1], and the fused pair launched on every
+    annealed evaluation (forward also on every components pass)."""
+    kw = PT_NUTS_KWARGS
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kk, osk)
+    chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=PT_NUTS_ROUNDS, verbosity=1,
+                                     **kw)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    n_evals, n_sweeps, t_sampling = info["n_grad_evals"], info["n_sweeps"], info["sampling_time_s"]
+    W, NT = kw["n_walkers"], kw["n_chains"] + kw["n_chains_variational"]
+    x = np.stack([chain[n] for n in model.parameter_names], axis=-1)
+    log(f"partial-arc PT, NUTS explorer: {W} walkers x ({kw['n_chains']} + "
+        f"{kw['n_chains_variational']}) rungs = {W * NT} chains, explorer_max_depth "
+        f"{kw['explorer_max_depth']}, {PT_NUTS_ROUNDS} rounds ({n_sweeps} sweeps), float32")
+    for r in info["rounds"]:
+        log(f"  round {r['round']}: {r['sweeps']} sweeps in {r['seconds']:.2f} s; per-rung longest "
+            f"tree (leaves) longest {r['L_longest']}, median {r['L_median']:g}; barrier "
+            f"{r['barrier']:.3f}; acceptance by rung {np.round(r['acceptance'], 3).tolist()}")
+    log(f"  sampling {t_sampling:.2f} s, batched annealed gradient evaluations {n_evals} "
+        f"({t_sampling / n_evals * 1e6:.1f} us each, sweeps included, "
+        f"{n_evals / n_sweeps:.1f} per sweep)")
+    log(f"  log-evidence {info['logevidence']:.3f} (se {info['logevidence_se']:.3f}), barrier "
+        f"{info['global_barrier']:.3f}, variational barrier "
+        f"{info['global_barrier_variational']:.3f}, round trips {info['n_round_trips']}")
+    log(f"  kernel launches: {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    acc = info["rounds"][-1]["acceptance"]
+    if not bool(np.isfinite(x).all()):
+        raise AssertionError("PT NUTS: non-finite draws")
+    if not all(np.isfinite(info[k]) for k in
+               ("logevidence", "global_barrier", "global_barrier_variational")):
+        raise AssertionError("PT NUTS: non-finite log-evidence or barrier")
+    if not bool(((acc > 0) & (acc <= 1)).all()):
+        raise AssertionError(f"PT NUTS: a rung's acceptance outside (0, 1]: {acc}")
+    if launches["orbit_solve_fwd"] < n_evals + n_sweeps or launches["orbit_solve_bwd"] < n_evals:
+        raise AssertionError(
+            f"PT NUTS: the fused orbit-solve kernels were launched {launches} times, fewer than "
+            f"the {n_evals} gradient evaluations (+ {n_sweeps} components passes)")
+    return {"launches": launches, "n_evals": n_evals}
+
+
+def rejection_phase(ot, kk, osk) -> dict:
+    """The OFTI workflow (`examples/09_ofti_rejection.py`): its model built
+    with the port in float64 on the GPU (the marginal likelihood cancels
+    about four digits), checked against the float64 CPU model at 64 prior
+    draws, then `octofit_rejection` at the example's sizes, every launch
+    count set to 0 just before and read just after. Gates: num_samples
+    draws accepted, finite; the medians of e, a, M and plx within 5
+    posterior sd of the truth; the standalone Kepler kernel launched once
+    per batch at (batch_size, 8) (and once more for the accepted draws)."""
+    data = ofti_data(ot)
+    model = build_ofti_model(ot, data, device="cuda", dtype=torch.float64)
+    ref = build_ofti_model(ot, data, device="cpu", dtype=torch.float64)
+    pts = ref.link(ref.sample_priors(torch.Generator().manual_seed(7), 64))
+    with torch.no_grad():
+        lp_ref = ref.ln_post(pts)
+        lp_gpu = model.ln_post(pts).cpu()
+    err = float((lp_gpu - lp_ref).abs().max())
+    log(f"reference (OFTI): ln_post float64 GPU vs float64 CPU at 64 prior draws: max |diff| "
+        f"{err:.3e} (ln_post in [{float(lp_ref.min()):.1f}, {float(lp_ref.max()):.1f}]; tol 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError("OFTI: the GPU model disagrees with the CPU model")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _reset_launches(kk, osk)
+    t0 = time.perf_counter()
+    chain = ot.octofit_rejection(model, generator=gen, verbosity=1, **REJECTION_KWARGS)
+    torch.cuda.synchronize()
+    t_rej = time.perf_counter() - t0
+    launches = _launches(kk, osk)
+    kepler_shapes = dict(kk.launch_shapes)
+    n_batches, frac = chain.info["n_batches"], chain.info["acceptance_fraction"]
+    rate = chain.info["n_accepted"] / chain.info["n_drawn"]
+    batch = REJECTION_KWARGS["batch_size"]
+    log(f"rejection (OFTI): {n_batches} batches of {batch} prior draws in {t_rej:.2f} s "
+        f"({t_rej / n_batches:.3f} s per batch, {n_batches * batch / t_rej / 1e6:.3f} M draws/s), "
+        f"acceptance rate {rate:.4e} ({chain.info['n_accepted']} of {chain.info['n_drawn']} "
+        f"accepted; acceptance_fraction, cut to num_samples, {frac:.4e}), float64")
+    log(f"  kernel launches: {launches}; kepler_solve by shape: {kepler_shapes}")
+    n_acc = len(chain.flat("e"))
+    if n_acc != REJECTION_KWARGS["num_samples"]:
+        raise AssertionError(f"OFTI: {n_acc} draws accepted, not {REJECTION_KWARGS['num_samples']}")
+    if not all(np.isfinite(chain.flat(k)).all() for k in chain.names):
+        raise AssertionError("OFTI: non-finite draws")
+    for name in ("e", "a", "M", "plx"):
+        _gate_median("rejection", chain, name, OFTI_TRUE[name])
+    if kepler_shapes.get((batch, OFTI_EPOCHS)) != n_batches:
+        raise AssertionError(f"OFTI: the Kepler kernel was launched {kepler_shapes} times, not once "
+                             f"per batch at ({batch}, {OFTI_EPOCHS})")
+    return {"launches": launches, "kepler_shapes": kepler_shapes, "seconds": t_rej,
+            "n_batches": n_batches, "acceptance_rate": rate}
 
 
 # The device diagnostics against the numpy oracle on the same float32
@@ -924,16 +1190,17 @@ def kepler_path_phase(kk, kepler_mod, shapes) -> dict:
     """The standalone Kepler kernel against its twin at every shape the
     main path launched it with, through `kepler_solver` as that path calls
     it: M contiguous, one eccentricity per chain expanded over the epochs
-    (the Function makes it contiguous). 64 draws per shape and precision,
-    the first with e = 0, the second with e = 0.99, the third with M = 0
-    and +-pi among its entries; then both are timed at that shape."""
+    (the Function makes it contiguous). 64 draws per shape and precision (8
+    from 2^16 elements up), the first with e = 0, the second with e = 0.99,
+    the third with M = 0 and +-pi among its entries; then both are timed at
+    that shape."""
     res = {}
     for shape in sorted(shapes, key=lambda s: int(np.prod(s))):
         n = int(np.prod(shape))
         for dtype in (torch.float32, torch.float64):
             rng = np.random.default_rng(6)
             worst = 0.0
-            for trial in range(64):
+            for trial in range(64 if n < 2**16 else 8):
                 M = rng.uniform(-50.0, 50.0, shape)
                 e_row = rng.uniform(0.0, 0.99, shape[:-1] + (1,) if shape else ())
                 if trial < 2:
@@ -1061,10 +1328,14 @@ def main() -> int:
     main = main_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
     pres = kepler_path_phase(kk, kepler_mod, main["kepler_shapes"])
     fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
+    nuts = nuts_path_phase(ot, kk, osk, main["model"])
     joint = joint_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
     pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
     ptres = kepler_path_phase(kk, kepler_mod, pt["kepler_shapes"])
+    pt_nuts = pt_nuts_phase(ot, kk, osk, pt["model"])
+    rej = rejection_phase(ot, kk, osk)
+    rres = kepler_path_phase(kk, kepler_mod, rej["kepler_shapes"])
     diagnostics_phase(ot, [("headline", main["x"]), ("joint", joint["x"])])
 
     f32 = torch.float32
@@ -1103,6 +1374,18 @@ def main() -> int:
         "orbit_solve_fwd": (pt_shape, ores["fwd"][(pt_shape, f32)], fwd_bound(PT_CHAINS, N_EPOCHS)),
         "orbit_solve_bwd": (pt_shape, ores["bwd"][(pt_shape, f32)], bwd_bound(PT_CHAINS, N_EPOCHS)),
     }
+    # the NUTS path's shape; the NUTS explorer's ladder has the headline's
+    nshape = f"({NUTS_CHAINS}, {N_EPOCHS})"
+    pt_nuts_shape = f"({PT_NUTS_CHAINS}, {N_EPOCHS})"
+    nuts_rows = {
+        "orbit_solve_fwd": (ores["fwd"][(nshape, f32)], fwd_bound(NUTS_CHAINS, N_EPOCHS)),
+        "orbit_solve_bwd": (ores["bwd"][(nshape, f32)], bwd_bound(NUTS_CHAINS, N_EPOCHS)),
+    }
+    # the rejection path's bulk shape, float64: reads M and e, writes E
+    f64 = torch.float64
+    rej_shape = (REJECTION_KWARGS["batch_size"], OFTI_EPOCHS)
+    rej_row = rres[(rej_shape, f64)]
+    rej_bound = bound_ms(24 * rej_row["n"], OPS_KEPLER * rej_row["n"], f64)
     kernels = []
     for kname, source, replaces, shape, row, row_big, bnd, bnd_big in (
         ("kepler_solve", "kepler.cu", "octofitter_tpu/orbits/pallas_kepler.py:103",
@@ -1147,7 +1430,20 @@ def main() -> int:
             "pt_ms": pt_rows[kname][1]["ms"],
             "pt_plain_ms": pt_rows[kname][1]["plain_ms"],
             "pt_bound_ms": pt_rows[kname][2][0],
+            "nuts_launches": nuts["launches"][kname],
+            "hmc_launches": nuts["hmc_launches"][kname],
+            "pt_nuts_launches": pt_nuts["launches"][kname],
+            "rejection_launches": rej["launches"][kname],
         })
+        if kname in nuts_rows:
+            kernels[-1].update({
+                "nuts_shape": nshape,
+                "nuts_max_abs_err": nuts_rows[kname][0]["err"],
+                "nuts_ms": nuts_rows[kname][0]["ms"],
+                "nuts_plain_ms": nuts_rows[kname][0]["plain_ms"],
+                "nuts_bound_ms": nuts_rows[kname][1][0],
+                "pt_nuts_shape": pt_nuts_shape,
+            })
     composed_ms, composed_plain_ms = kres["timing"][(small, f32)]
     kernels[0].update({
         "max_abs_err_f64": pres[(path_shape, torch.float64)]["err"],
@@ -1157,6 +1453,14 @@ def main() -> int:
         "composed_ms": composed_ms,
         "composed_plain_ms": composed_plain_ms,
         "composed_bound_ms": bound_ms(12 * n_small, OPS_KEPLER * n_small, f32)[0],
+        "rejection_shape": str(rej_shape),
+        "rejection_dtype": "float64",
+        "rejection_launch_shapes": {str(sh): k for sh, k in rej["kepler_shapes"].items()},
+        "rejection_max_abs_err": rej_row["err"],
+        "rejection_ms": rej_row["ms"],
+        "rejection_plain_ms": rej_row["plain_ms"],
+        "rejection_bound_ms": rej_bound[0],
+        "rejection_bound_by": rej_bound[1],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

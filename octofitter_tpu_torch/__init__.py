@@ -2,11 +2,12 @@
 
 The same model-building API as the JAX package (`Planet`, `System`,
 `UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
-likelihoods without Gaussian processes, `LogDensityModel`,
-`theta_at_epoch_to_tperi`, the `UserLikelihood` and `DirectLL` user
-terms, `octofit`, the parallel-tempering `octofit_pigeons`, `Chains` and
-the diagnostics, `ess_rhat_batch_device` on the card among them), written
-in PyTorch.
+likelihoods without Gaussian processes, the continuous priors,
+`LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
+`UserLikelihood` and `DirectLL` user terms, `octofit` with ChEES, NUTS
+and HMC, the parallel-tempering `octofit_pigeons`, `octofit_rejection`,
+`Chains` and the diagnostics, `ess_rhat_batch_device` on the card among
+them), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -17,7 +18,7 @@ nvcc at first use. This package never imports JAX.
 
 from . import constants
 from . import distributions
-from .distributions import Sine
+from .distributions import Sine, UniformImproper, KDEDist
 from . import bijectors
 from . import orbits
 from .constants import mjd, mjd2jd, jd2mjd, years2mjd, mjd2years
@@ -39,6 +40,7 @@ from .model import (
     UserLikelihood,
     LogDensityModel,
     theta_at_epoch_to_tperi,
+    ofti_linear_solve,
     likelihoodname,
 )
 from .likelihoods import (
@@ -60,7 +62,7 @@ from .rv import (
 )
 from . import io
 from .config import OctofitterConfig, get_config, set_config
-from .samplers import octofit, octofit_pigeons
+from .samplers import octofit, octofit_pigeons, octofit_rejection
 from .chains import (
     Chains,
     ess_rhat,

@@ -1,10 +1,12 @@
-"""Prior distributions (the subset the headline fit uses).
+"""Prior distributions (the continuous ones).
 
-PyTorch port of `octofitter_tpu/distributions.py:52-362`: Normal,
-Uniform, LogNormal, LogUniform, TruncatedNormal with `truncated`, and
-Sine. They stay frozen dataclasses, so `LogDensityModel` can stack the
-priors of one class into a single instance whose fields are tensors
-(one entry per parameter) and evaluate each class in one vector op.
+PyTorch port of `octofitter_tpu/distributions.py:52-447`: Normal,
+Uniform, LogNormal, LogUniform, Exponential, Beta, Gamma, TruncatedNormal
+with `truncated`, Sine, UniformImproper and KDEDist. All but KDEDist stay
+frozen dataclasses, so `LogDensityModel` can stack the priors of one class
+into a single instance whose fields are tensors (one entry per parameter)
+and evaluate each class in one vector op; a KDEDist is evaluated on its
+own.
 
 A field is a Python float (a prior written by a user) or a tensor (a
 stacked group). ``logpdf`` is branch-free: out-of-support inputs give
@@ -18,6 +20,7 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 
 from . import bijectors
@@ -28,9 +31,14 @@ __all__ = [
     "Uniform",
     "LogNormal",
     "LogUniform",
+    "Exponential",
+    "Beta",
+    "Gamma",
     "TruncatedNormal",
     "truncated",
     "Sine",
+    "UniformImproper",
+    "KDEDist",
 ]
 
 _SQRT2 = math.sqrt(2.0)
@@ -41,8 +49,37 @@ def _log(v):
     return torch.log(v) if isinstance(v, torch.Tensor) else math.log(v)
 
 
+def _lgamma(v):
+    return torch.lgamma(v) if isinstance(v, torch.Tensor) else math.lgamma(v)
+
+
 def _uniform(generator, shape, dtype):
     return torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+
+
+def _standard_gamma(alpha, generator, shape, dtype):
+    """Gamma(alpha, 1) draws of `shape` (alpha a float or a tensor that
+    broadcasts to it) by Marsaglia and Tsang's (2000) squeeze-free
+    rejection, every draw from `generator`; alpha < 1 draws at alpha + 1
+    and scales by U^(1 / alpha). Rejected draws are redrawn in batches
+    until every element is accepted."""
+    dev = generator.device
+    alpha = torch.as_tensor(alpha, dtype=dtype, device=dev).expand(shape)
+    boost = alpha < 1
+    a = torch.where(boost, alpha + 1, alpha)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.zeros(shape, dtype=dtype, device=dev)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    while not bool(done.all()):
+        x = torch.randn(shape, generator=generator, dtype=dtype, device=dev)
+        v = (1 + c * x) ** 3
+        u = _uniform(generator, shape, dtype)
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * torch.log(v))
+        out = torch.where(ok & ~done, d * v, out)
+        done = done | ok
+    u = _uniform(generator, shape, dtype)
+    return torch.where(boost, out * u ** (1.0 / alpha), out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +221,88 @@ class LogUniform(Distribution):
         return math.sqrt(max(m2 - m1**2, 0.0))
 
 
+@dataclasses.dataclass(frozen=True)
+class Exponential(Distribution):
+    """Exponential with *scale* (mean) theta, Distributions.jl convention."""
+
+    theta: float = 1.0
+
+    def logpdf(self, x):
+        lp = -x / self.theta - _log(self.theta)
+        return torch.where(x >= 0, lp, -math.inf)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        e = torch.empty(shape, dtype=dtype, device=generator.device).exponential_(generator=generator)
+        return self.theta * e
+
+    @property
+    def support(self):
+        return (0.0, math.inf)
+
+    def mean(self):
+        return self.theta
+
+    def std(self):
+        return self.theta
+
+
+@dataclasses.dataclass(frozen=True)
+class Beta(Distribution):
+    alpha: float = 1.0
+    beta: float = 1.0
+
+    def logpdf(self, x):
+        a, b = self.alpha, self.beta
+        lbeta = _lgamma(a) + _lgamma(b) - _lgamma(a + b)
+        safe_x = torch.clamp(x, 1e-300, 1 - 1e-16)
+        lp = (a - 1) * torch.log(safe_x) + (b - 1) * torch.log1p(-safe_x) - lbeta
+        return _in_support(self, x, lp)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        # X / (X + Y) with X ~ Gamma(alpha), Y ~ Gamma(beta)
+        x = _standard_gamma(self.alpha, generator, shape, dtype)
+        y = _standard_gamma(self.beta, generator, shape, dtype)
+        return x / (x + y)
+
+    @property
+    def support(self):
+        return (0.0, 1.0)
+
+    def mean(self):
+        return self.alpha / (self.alpha + self.beta)
+
+    def std(self):
+        a, b = self.alpha, self.beta
+        return math.sqrt(a * b / ((a + b) ** 2 * (a + b + 1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Gamma(Distribution):
+    """Gamma with shape alpha and *scale* theta (Distributions.jl)."""
+
+    alpha: float = 1.0
+    theta: float = 1.0
+
+    def logpdf(self, x):
+        a, t = self.alpha, self.theta
+        safe_x = torch.where(x > 0, x, 1.0)
+        lp = (a - 1) * torch.log(safe_x) - safe_x / t - _lgamma(a) - a * _log(t)
+        return torch.where(x > 0, lp, -math.inf)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        return self.theta * _standard_gamma(self.alpha, generator, shape, dtype)
+
+    @property
+    def support(self):
+        return (0.0, math.inf)
+
+    def mean(self):
+        return self.alpha * self.theta
+
+    def std(self):
+        return math.sqrt(self.alpha) * self.theta
+
+
 def _ndtr_clipped(z):
     # standard normal cdf, argument clipped to +-38 as the JAX package does
     if isinstance(z, torch.Tensor):
@@ -263,3 +382,99 @@ class Sine(Distribution):
 
     def std(self):
         return math.sqrt(0.25 - 2 / math.pi**2)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformImproper(Distribution):
+    """Improper flat prior on the whole real line."""
+
+    def logpdf(self, x):
+        return torch.zeros_like(x)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        # the reference's quantile(d, p) = p convention
+        return _uniform(generator, shape, dtype)
+
+    def mean(self):
+        return 0.5
+
+    def std(self):
+        return 1.0
+
+
+def _interp(x, xp, fp):
+    """`jnp.interp(x, xp, fp)` for increasing xp: linear between the
+    bracketing knots, fp[0] below xp[0] and fp[-1] above xp[-1]."""
+    i = torch.searchsorted(xp, x.reshape(-1).contiguous(), right=True).reshape(x.shape)
+    i = torch.clamp(i, 1, len(xp) - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    dx = xp[i] - x0
+    # knots that coincide (a cdf flat to the dtype's precision) give fp
+    # at the left one, as jnp.interp does
+    flat = dx.abs() <= np.spacing(torch.finfo(xp.dtype).eps)
+    f = torch.where(flat, f0, f0 + (x - x0) / torch.where(flat, 1.0, dx) * (fp[i] - f0))
+    return torch.where(x < xp[0], fp[0], torch.where(x > xp[-1], fp[-1], f))
+
+
+class KDEDist(Distribution):
+    """1-D kernel density estimate prior.
+
+    The Gaussian-KDE density (Silverman's bandwidth by default, reflected
+    at the bounds) is computed once on a fixed grid with numpy, as the JAX
+    package does; ``logpdf`` interpolates it linearly on that grid and
+    ``sample`` inverts its cdf on the same grid. The grid goes to a
+    tensor's device and dtype at first use there."""
+
+    def __init__(self, data, bandwidth=None, lower=None, upper=None, gridsize=2048):
+        data = np.asarray(data, dtype=np.float64)
+        if bandwidth is None:
+            # Silverman's rule, as KernelDensity.jl's default_bandwidth
+            n = data.size
+            sig = min(np.std(data), (np.percentile(data, 75) - np.percentile(data, 25)) / 1.349)
+            bandwidth = 0.9 * sig * n ** (-1 / 5)
+        self.bandwidth = float(bandwidth)
+        self.lower = float(np.min(data) if lower is None else lower)
+        self.upper = float(np.max(data) if upper is None else upper)
+        self.data = data
+        grid = np.linspace(self.lower, self.upper, gridsize)
+        # density as a mixture of normals, reflected at the bounds as
+        # KernelDensity.jl's boundary= handling does
+        z = (grid[:, None] - data[None, :]) / self.bandwidth
+        dens = np.exp(-0.5 * z**2).sum(axis=1)
+        zl = (grid[:, None] - (2 * self.lower - data[None, :])) / self.bandwidth
+        zu = (grid[:, None] - (2 * self.upper - data[None, :])) / self.bandwidth
+        dens += np.exp(-0.5 * zl**2).sum(axis=1)
+        dens += np.exp(-0.5 * zu**2).sum(axis=1)
+        dens /= data.size * self.bandwidth * math.sqrt(2 * math.pi)
+        # normalize on the truncated domain
+        cdf = np.concatenate([[0.0], np.cumsum((dens[1:] + dens[:-1]) / 2) * np.diff(grid)])
+        self._grid_np, self._dens_np, self._cdf_np = grid, dens / cdf[-1], cdf / cdf[-1]
+        self._tables = {}
+
+    def _table(self, ref: torch.Tensor):
+        """(grid, density, cdf) as tensors of ref's dtype on ref's device."""
+        key = (ref.device, ref.dtype)
+        if key not in self._tables:
+            self._tables[key] = tuple(torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+                                      for a in (self._grid_np, self._dens_np, self._cdf_np))
+        return self._tables[key]
+
+    def logpdf(self, x):
+        grid, dens, _ = self._table(x)
+        lp = torch.log(torch.clamp(_interp(x, grid, dens), min=1e-300))
+        return _in_support(self, x, lp)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        p = _uniform(generator, shape, dtype)
+        grid, _, cdf = self._table(p)
+        return _interp(p, cdf, grid)
+
+    @property
+    def support(self):
+        return (self.lower, self.upper)
+
+    def mean(self):
+        return float(np.mean(self.data))
+
+    def std(self):
+        return float(np.std(self.data))

@@ -16,7 +16,12 @@ from .variables import (
     normalizename,
 )
 from .logdensity import LogDensityModel
-from .parameterizations import theta_at_epoch_to_tperi
+from .parameterizations import (
+    ofti_linear_solve,
+    theta_at_epoch_to_tperi,
+    theta_omegatheta_at_epoch_to_omega_tperi,
+    theta_sep_at_epoch_to_tperi_sma,
+)
 
 __all__ = [
     "Params",
@@ -35,4 +40,7 @@ __all__ = [
     "normalizename",
     "LogDensityModel",
     "theta_at_epoch_to_tperi",
+    "theta_omegatheta_at_epoch_to_omega_tperi",
+    "theta_sep_at_epoch_to_tperi_sma",
+    "ofti_linear_solve",
 ]

@@ -36,10 +36,15 @@ import torch
 
 from .nuts import (
     MAX_DELTA_ENERGY,
-    Metric,
     NutsStats,
     WelfordState,
+    _kinetic,
+    _leapfrog,
+    _sample_momentum,
+    _stack_draws,
+    _velocity,
     build_warmup_schedule,
+    chain_metric,
     da_init,
     da_update,
     leapfrogs_masked,
@@ -50,34 +55,8 @@ from .nuts import (
 
 
 # --------------------------------------------------------------------------
-# Batched metric ops (chains axis leading)
+# Welford accumulator over the chains of a batch
 # --------------------------------------------------------------------------
-
-def _velocity_batch(metric: Metric, R):
-    if metric.sigma.ndim == 1:
-        return R * metric.sigma[None, :]
-    return R @ metric.sigma.T
-
-
-def _kinetic_batch(metric: Metric, R):
-    return 0.5 * torch.sum(R * _velocity_batch(metric, R), dim=-1)
-
-
-def _sample_momentum_batch(metric: Metric, generator, C, D, dtype):
-    Z = torch.randn((C, D), generator=generator, dtype=dtype, device=generator.device)
-    if metric.sigma.ndim == 1:
-        return Z / metric.chol[None, :]
-    # r ~ N(0, sigma^{-1}); with sigma = L L^T, r = L^{-T} z
-    return torch.linalg.solve_triangular(metric.chol.T, Z.T, upper=True).T
-
-
-def _leapfrog_batch(vg_batch, Theta, R, Grad, eps, metric):
-    R_half = R + 0.5 * eps * Grad
-    Theta2 = Theta + eps * _velocity_batch(metric, R_half)
-    lp2, Grad2 = vg_batch(Theta2)
-    R2 = R_half + 0.5 * eps * Grad2
-    return Theta2, R2, lp2, Grad2
-
 
 def welford_update_batch(w: WelfordState, X):
     """Merge a (C, D) batch into a Welford accumulator (Chan et al.)."""
@@ -151,15 +130,16 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
     trajectory-length gradient estimate (a 0-d tensor) and the number of
     leapfrog steps taken."""
     C, D = Theta.shape
-    R0 = _sample_momentum_batch(metric, generator, C, D, Theta.dtype)
-    H0 = -lp + _kinetic_batch(metric, R0)
+    Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
+    R0 = _sample_momentum(metric, Z)
+    H0 = -lp + _kinetic(metric, R0)
 
     L = int(min(max(math.ceil(u * traj_len / eps), 1), max_leapfrog))
     Theta1, R1, lp1, Grad1 = Theta, R0, lp, Grad
     for _ in range(L):
-        Theta1, R1, lp1, Grad1 = _leapfrog_batch(vg_batch, Theta1, R1, Grad1, eps, metric)
+        Theta1, R1, lp1, Grad1 = _leapfrog(vg_batch, Theta1, R1, Grad1, eps, metric)
 
-    H1 = -lp1 + _kinetic_batch(metric, R1)
+    H1 = -lp1 + _kinetic(metric, R1)
     delta = H1 - H0
     delta = torch.where(torch.isnan(delta), torch.inf, delta)
     alpha = torch.clamp(torch.exp(-delta), max=1.0)
@@ -180,7 +160,7 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
     mean_prop = (w[:, None] * Theta1).sum(dim=0) / wsum
     dsq_prop = torch.sum((Theta1 - mean_prop[None, :]) ** 2, dim=1)
     dsq_cur = torch.sum((Theta - mean_cur[None, :]) ** 2, dim=1)
-    V1 = _velocity_batch(metric, R1)  # dtheta/dt at trajectory end
+    V1 = _velocity(metric, R1)  # dtheta/dt at trajectory end
     proj = torch.sum((Theta1 - mean_prop[None, :]) * V1, dim=1)
     per_chain = (dsq_prop - dsq_cur) * proj
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
@@ -218,16 +198,16 @@ def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
     C, D = Theta.shape
     W = C // n_rungs
     eps_r = eps.repeat(W)[:, None]
-    sigma_r = sigma.repeat(W, 1)
+    metric_r = chain_metric(sigma.repeat(W, 1))
     Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
-    R0 = Z / torch.sqrt(sigma_r)
-    H0 = -lp + 0.5 * torch.sum(R0 * R0 * sigma_r, dim=-1)
+    R0 = _sample_momentum(metric_r, Z)
+    H0 = -lp + _kinetic(metric_r, R0)
 
     steps_r = torch.as_tensor(np.tile(n_steps, W), device=Theta.device)
-    Theta1, R1, lp1, _ = leapfrogs_masked(vg_batch, Theta, R0, lp, Grad, eps_r, sigma_r,
+    Theta1, R1, lp1, _ = leapfrogs_masked(vg_batch, Theta, R0, lp, Grad, eps_r, metric_r,
                                           steps_r, int(np.min(n_steps)), int(np.max(n_steps)))
 
-    H1 = -lp1 + 0.5 * torch.sum(R1 * R1 * sigma_r, dim=-1)
+    H1 = -lp1 + _kinetic(metric_r, R1)
     delta = H1 - H0
     delta = torch.where(torch.isnan(delta), torch.inf, delta)
     alpha = torch.clamp(torch.exp(-delta), max=1.0)
@@ -245,21 +225,12 @@ def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
     mean_prop = (w[..., None] * Th1).sum(dim=0) / wsum[:, None]
     dsq_prop = torch.sum((Th1 - mean_prop) ** 2, dim=-1)
     dsq_cur = torch.sum((Th0 - Th0.mean(dim=0)) ** 2, dim=-1)
-    V1 = (R1 * sigma_r).view(W, n_rungs, D)
+    V1 = _velocity(metric_r, R1).view(W, n_rungs, D)
     proj = torch.sum((Th1 - mean_prop) * V1, dim=-1)
     per_chain = (dsq_prop - dsq_cur) * proj
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
     grad_logT = (w * per_chain).sum(dim=0) / wsum * u
     return Theta_new, alpha, grad_logT
-
-
-def _stack_draws(Thetas, lps, stats_list):
-    """Per-step lists -> samples (C, S, D), lps (C, S), stats with (C, S)
-    leaves (chains first)."""
-    samples = torch.stack(Thetas, dim=1)
-    lps_out = torch.stack(lps, dim=1)
-    stats = NutsStats(*(torch.stack(leaf, dim=1) for leaf in zip(*stats_list)))
-    return samples, lps_out, stats
 
 
 # --------------------------------------------------------------------------

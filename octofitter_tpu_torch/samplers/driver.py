@@ -1,10 +1,14 @@
-"""High-level sampling entry point.
+"""High-level sampling entry points.
 
-PyTorch port of the ChEES path of `octofitter_tpu/samplers/driver.py`:
-`octofit` initializes the model (prior search -> multistart Adam ->
-L-BFGS -> Laplace) unless it has starting points, runs cross-chain
-ChEES-HMC over all chains at once, prints a sampling report, and
+PyTorch port of `octofitter_tpu/samplers/driver.py`: `octofit`
+initializes the model (prior search -> multistart Adam -> L-BFGS ->
+Laplace) unless it has starting points, runs cross-chain ChEES-HMC, NUTS
+or jittered HMC over all chains at once, prints a sampling report, and
 repackages the draws (with all derived quantities) into a named `Chains`.
+
+`octofit_rejection` mirrors `sampling.jl:168-279`: IID prior batches drawn
+and scored on the model's device, each draw accepted with probability
+exp(ll - max_ll) against the global maximum likelihood.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 
 from ..chains import Chains, flatten_params_batch
 from ..model.logdensity import LogDensityModel
+from .chees import run_chees
+from .nuts import run_nuts
 
 
 def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
@@ -53,10 +59,11 @@ def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
         "sampler": f"{sampler}_vectorized",
         "model_name": model.system.name,
         "stop_time": datetime.datetime.now().isoformat(timespec="seconds"),
-        "step_size": float(info["step_size"]),
+        "step_size": np.asarray(info["step_size"]),
         "sigma": info["sigma"].cpu().numpy(),
         "sampling_time_s": t_sampling,
         "n_grad_evals": info["n_grad_evals"],
+        "transition_evals": info.get("transition_evals"),  # NUTS and HMC
         "parameter_names": model.parameter_names,
         "device": str(model.device),
     }
@@ -100,8 +107,12 @@ def octofit(
     step_size: float | None = None,
     drop_warmup: bool = True,
 ):
-    """Sample the posterior with cross-chain ChEES-HMC.
+    """Sample the posterior with a vectorized transition (ChEES default).
 
+    sampler: "chees" (cross-chain ChEES-HMC), "nuts" (per-chain
+    window-adapted multinomial NUTS, the reference's transition) or "hmc"
+    (jittered-trajectory HMC with NUTS's adaptation); "gibbs" (the
+    discrete priors' Gibbs-within-HMC) is not ported and raises.
     Defaults mirror the reference (`sampling.jl:317-325`) and resolve
     from the typed config (OCTOFITTER_* env overrides; config.py).
     generator: a `torch.Generator` on the model's device (default: seed 0).
@@ -121,11 +132,14 @@ def octofit(
     max_depth = cfg.max_depth if max_depth is None else max_depth
     verbosity = cfg.verbosity if verbosity is None else verbosity
     sampler = cfg.sampler if sampler is None else sampler
-    if sampler != "chees":
+    if sampler == "gibbs":
         raise NotImplementedError(
-            f"sampler={sampler!r} is not ported to octofitter_tpu_torch yet; "
-            "use sampler='chees'"
+            "sampler='gibbs' (Gibbs-within-HMC over discrete priors) is not "
+            "ported to octofitter_tpu_torch yet; it comes with the discrete "
+            "priors in the next slice (ROADMAP Queue 1 item 12)"
         )
+    if sampler not in ("chees", "nuts", "hmc"):
+        raise ValueError(f"unknown sampler {sampler!r}; use 'chees', 'nuts' or 'hmc'")
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
 
@@ -147,25 +161,39 @@ def octofit(
         else:
             initial_sigma = _initial_sigma_from_points(pts.cpu().numpy(), metric)
 
-    from .chees import run_chees
-
     t0 = time.perf_counter()
-    samples, lps, stats, info = run_chees(
-        model.ln_post_and_grad,
-        theta0,
-        generator,
-        n_warmup=adaptation,
-        n_samples=iterations,
-        target_accept=target_accept,
-        metric=metric,
-        initial_sigma=initial_sigma,
-        # ChEES trajectories are capped harder than a NUTS tree: on
-        # plateau posteriors the adapted length can otherwise run to
-        # 2**max_depth leapfrogs per step
-        max_leapfrog=min(2**max_depth, 1024),
-        drop_warmup=drop_warmup,
-        **({} if step_size is None else {"initial_step_size": step_size}),
-    )
+    if sampler == "chees":
+        samples, lps, stats, info = run_chees(
+            model.ln_post_and_grad,
+            theta0,
+            generator,
+            n_warmup=adaptation,
+            n_samples=iterations,
+            target_accept=target_accept,
+            metric=metric,
+            initial_sigma=initial_sigma,
+            # ChEES trajectories are capped harder than a NUTS tree: on
+            # plateau posteriors the adapted length can otherwise run to
+            # 2**max_depth leapfrogs per step
+            max_leapfrog=min(2**max_depth, 1024),
+            drop_warmup=drop_warmup,
+            **({} if step_size is None else {"initial_step_size": step_size}),
+        )
+    else:
+        samples, lps, stats, info = run_nuts(
+            model.ln_post_and_grad,
+            theta0,
+            generator,
+            n_warmup=adaptation,
+            n_samples=iterations,
+            max_depth=max_depth,
+            target_accept=target_accept,
+            metric=metric,
+            initial_sigma=initial_sigma,
+            sampler=sampler,
+            initial_step_size=step_size,
+            drop_warmup=drop_warmup,
+        )
     if samples.is_cuda:
         torch.cuda.synchronize(samples.device)
     t_sampling = time.perf_counter() - t0
@@ -175,14 +203,125 @@ def octofit(
         n_div = int(stats.is_divergent.sum())
         n_draws_total = chains * iterations
         mean_accept = float(stats.acceptance_rate.mean())
+        mean_depth = float(stats.tree_depth.double().mean())
         print(
             f"octofit sampling report: {chains} chains x {iterations} draws "
             f"in {t_sampling:.2f}s on {model.device}\n"
             f"  mean acceptance          {mean_accept:.3f}\n"
             f"  divergences              {n_div} "
             f"({100 * n_div / n_draws_total:.2f}%)\n"
+            f"  mean tree depth          {mean_depth:.2f}\n"
             f"  batched gradient evals   {n_evals}\n"
             f"  time per batched eval    {t_sampling / max(n_evals, 1) * 1e6:.2f} us"
         )
 
-    return _repackage(model, samples, lps, stats, info, t_sampling)
+    return _repackage(model, samples, lps, stats, info, t_sampling, sampler)
+
+
+def octofit_rejection(
+    model: LogDensityModel,
+    *,
+    generator: torch.Generator | None = None,
+    num_samples: int = 10_000,
+    batch_size: int = 100_000,
+    max_batches: int = 100,
+    verbosity: int = 1,
+):
+    """Rejection sampling from the prior (`sampling.jl:168-279`).
+
+    Draws IID prior batches on the model's device; each draw is accepted
+    with probability exp(ll - max_ll) against the GLOBAL maximum
+    likelihood, as the reference does with its single pre-evaluated batch:
+    every batch keeps, on the device, the superset accepted under the
+    running maximum (which only grows, so acceptance probabilities only
+    shrink) with each draw's uniform variate, and the final accept
+    re-filters all retained candidates under the final max_ll, so the
+    result is distributionally identical to one giant batch. The host
+    reads the batch's maximum and the accepted count, once per batch.
+    generator: a `torch.Generator` on the model's device (default: seed 0).
+    Pairs with `ofti_linear_solve` for OFTI-style workflows.
+    """
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+
+    cand_draws, cand_ll, cand_u = [], [], []
+    max_ll = -np.inf
+    total_drawn = 0
+    n_acc = 0
+    for i in range(max_batches):
+        with torch.no_grad():
+            draws = model.sample_priors(generator, batch_size)
+            lls = model.ln_like_nt(model.arr2nt(draws))
+        lls = torch.where(torch.isnan(lls), -torch.inf, lls)
+        u = torch.rand((batch_size,), generator=generator, dtype=model.dtype,
+                       device=generator.device)
+        prev_max_ll = max_ll
+        # the maximum over finite values: one +inf must not reject the rest
+        max_ll = max(max_ll, float(torch.where(torch.isfinite(lls), lls, -torch.inf).max()))
+        keep = u < torch.exp(lls - max_ll)
+        cand_draws.append(draws[keep])
+        cand_ll.append(lls[keep])
+        cand_u.append(u[keep])
+        total_drawn += batch_size
+        # exact acceptance count under the current global max. A higher
+        # max only shrinks earlier candidates' acceptance, so the full
+        # recount is needed ONLY when max_ll moved; otherwise count just
+        # this batch's kept candidates (already filtered under max_ll).
+        if max_ll > prev_max_ll:
+            n_acc = int(sum((uc < torch.exp(lc - max_ll)).sum() for uc, lc in zip(cand_u, cand_ll)))
+        else:
+            n_acc += int(keep.sum())
+        if verbosity >= 2:
+            print(f"octofit_rejection: batch {i + 1}, accepted {n_acc}/{total_drawn}")
+        if n_acc >= num_samples:
+            break
+
+    if not np.isfinite(max_ll):
+        raise RuntimeError("all prior samples produced non-finite log-likelihoods")
+    draws_all = torch.cat(cand_draws)
+    ll_all = torch.cat(cand_ll)
+    final = torch.cat(cand_u) < torch.exp(ll_all - max_ll)
+    n_accepted = int(final.sum())
+    draws_nat = draws_all[final][:num_samples]
+    ll_acc = ll_all[final][:num_samples]
+    n_kept = len(draws_nat)
+    if n_kept == 0:
+        raise RuntimeError("rejection sampling accepted zero draws")
+    if n_kept / total_drawn < 1e-3 and verbosity >= 1:
+        print(
+            "octofit_rejection: very low acceptance rate "
+            f"({100 * n_kept / total_drawn:.3g}%); consider octofit (HMC) instead"
+        )
+
+    with torch.no_grad():
+        nts = model.arr2nt(draws_nat)
+        lp = model.ln_prior_transformed(model.link(draws_nat)).cpu().numpy()
+    data = {}
+    for k, v in flatten_params_batch(nts).items():
+        if v.ndim == 0 or v.shape[0] != n_kept:  # a constant: the same for every draw
+            v = np.broadcast_to(v, (n_kept,) + v.shape)
+        if v.ndim == 1:
+            data[k] = v[None, :]
+        else:
+            flat2 = v.reshape(n_kept, -1)
+            for j in range(flat2.shape[-1]):
+                data[f"{k}_{j + 1}"] = flat2[None, :, j]
+    ll_np = ll_acc.cpu().numpy()
+    internals = {
+        "loglike": ll_np[None, :],
+        "logpost": (ll_np + lp)[None, :],
+    }
+    info = {
+        "sampler": "rejection",
+        "model_name": model.system.name,
+        "acceptance_fraction": n_kept / total_drawn,
+        # every draw accepted under the final maximum, before the cut to
+        # num_samples: n_accepted / n_drawn is the acceptance rate itself,
+        # where acceptance_fraction (the reference's) is at most
+        # num_samples / n_drawn
+        "n_accepted": n_accepted,
+        "n_drawn": total_drawn,
+        "n_batches": i + 1,
+        "device": str(model.device),
+    }
+    return Chains(data, internals, info)

@@ -10,7 +10,8 @@ accounting, stepping-stone log-evidence and round checkpoints.
 The whole ladder is one batch: states are (n_walkers, n_rungs, D) on the
 model's device, and the explorer steps all W * NT chains at once, each
 rung with its own step size, diagonal metric and (for ChEES) trajectory
-length. A sweep reads one small array from the device, the rungs' mean
+length; the NUTS explorer grows every chain's tree in one lockstep batch.
+A sweep reads one small array from the device, the rungs' mean
 acceptance and ChEES gradients, from which the host adapts the step sizes
 and trajectory lengths (elementwise dual averaging and Adam over the
 rungs) and sets the next sweep's leapfrog counts. Swap statistics, metric
@@ -34,7 +35,7 @@ import torch
 from ..chains import Chains, flatten_params_batch
 from .chees import AdamState, _adam_step, _chees_transition_rungs, halton_sequence
 from .hmc import hmc_step
-from .nuts import DualAveragingState, Metric, da_init, da_update
+from .nuts import DualAveragingState, chain_metric, da_init, da_update, nuts_step
 
 # rows per batch of the final pass that turns recorded draws into Chains
 _POST_CHUNK = 2**17
@@ -258,11 +259,14 @@ def octofit_pigeons(
     mid-schedule, bit-identical to an uninterrupted run with the same
     n_rounds and device.
 
-    explorer: "chees" (per-rung shared-trajectory ChEES-HMC, the W walkers
-    of a rung sharing one Halton-jittered trajectory whose length each
-    rung adapts by Adam) or "hmc" (jittered-trajectory HMC with up to
-    explorer_n_leapfrog steps). The JAX default, "nuts", and `mesh=` are
-    not ported and raise NotImplementedError.
+    explorer: "nuts" (the default: one multinomial-NUTS transition of every
+    walker at every rung, trees of depth up to explorer_max_depth),
+    "chees" (per-rung shared-trajectory ChEES-HMC, the W walkers of a rung
+    sharing one Halton-jittered trajectory whose length each rung adapts
+    by Adam) or "hmc" (jittered-trajectory HMC with up to
+    explorer_n_leapfrog steps). Each rung has its own step size and
+    diagonal metric. `mesh=` is not ported and raises
+    NotImplementedError.
 
     Besides the JAX package's info keys, info holds "logevidence_se" (the
     standard error of the log-evidence that the spread of the estimates of
@@ -272,13 +276,7 @@ def octofit_pigeons(
     median per-rung leapfrog count over its sweeps, barriers, and round
     trips so far).
     """
-    if explorer == "nuts":
-        raise NotImplementedError(
-            "explorer='nuts' (per-replica NUTS trees) is not ported to "
-            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 12); use "
-            "explorer='chees' or 'hmc'"
-        )
-    if explorer not in ("chees", "hmc"):
+    if explorer not in ("nuts", "chees", "hmc"):
         raise ValueError(f"unknown explorer {explorer!r}")
     if mesh is not None:
         raise NotImplementedError(
@@ -292,7 +290,6 @@ def octofit_pigeons(
             "n_chains_variational must be 0 or >= 2 (a 1-rung "
             "variational leg would record raw reference draws)"
         )
-    del explorer_max_depth  # the NUTS explorer's; not ported
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
     D = model.D
@@ -410,7 +407,7 @@ def octofit_pigeons(
         eps_frozen, log_T_frozen = np.exp(da.log_eps), log_T
         if record:
             log_T_record = log_T_frozen
-        L_round = []
+        L_round, acc_round = [], []
 
         for _ in range(n_sweeps):
             i0 = sweep_counter % 2
@@ -429,15 +426,21 @@ def octofit_pigeons(
                     sigma_t, L, u, NT)
                 n_grad_evals += 1 + int(L.max())
             else:
-                L = np.full(NT, explorer_n_leapfrog)
-                eps_rows = host_tensor(eps_used).repeat(W)[:, None]
+                eps_rows = host_tensor(eps_used).repeat(W)
                 sigma_rows = sigma_t.repeat(W, 1)
-                Theta, _, _, stats = hmc_step(
-                    vg_batch, Theta, lp, grad, generator, eps_rows,
-                    Metric(sigma_rows, torch.sqrt(sigma_rows)), explorer_n_leapfrog)
+                metric_rows = chain_metric(sigma_rows)
+                if explorer == "hmc":
+                    L = np.full(NT, explorer_n_leapfrog)
+                    Theta, _, _, stats = hmc_step(vg_batch, Theta, lp, grad, generator, eps_rows,
+                                                  metric_rows, explorer_n_leapfrog)
+                    n_grad_evals += 1 + explorer_n_leapfrog
+                else:
+                    Theta, _, _, stats, n = nuts_step(vg_batch, Theta, lp, grad, generator,
+                                                      eps_rows, metric_rows, explorer_max_depth)
+                    # each rung's longest tree, read below with the acceptance
+                    L = stats.n_steps.reshape(W, NT).amax(dim=0)
+                    n_grad_evals += 1 + n
                 alpha, g_logT = stats.acceptance_rate, torch.zeros_like(lp[:NT])
-                n_grad_evals += 1 + explorer_n_leapfrog
-            L_round.append(L)
             theta = Theta.reshape(W, NT, D)
 
             # --- regenerate the reference rungs IID: rung 0 from the
@@ -487,8 +490,15 @@ def octofit_pigeons(
 
             # --- explorer adaptation, elementwise over rungs, from the
             # one read of this sweep
-            stacked = torch.cat([alpha.reshape(W, NT).mean(dim=0), g_logT.to(dtype)])
-            acc_mean, g_logT_h = np.split(stacked.cpu().double().numpy(), 2)
+            rows = [alpha.reshape(W, NT).mean(dim=0), g_logT.to(dtype)]
+            if explorer == "nuts":
+                rows.append(L.to(dtype))
+            read = torch.cat(rows).cpu().double().numpy().reshape(len(rows), NT)
+            acc_mean, g_logT_h = read[0], read[1]
+            if explorer == "nuts":
+                L = read[2].astype(np.int64)
+            L_round.append(L)
+            acc_round.append(acc_mean)
             da = da_update(da, acc_mean, target_accept)
             if explorer == "chees":
                 adam, dlt = _adam_step(adam, g_logT_h, 0.025)
@@ -559,6 +569,7 @@ def octofit_pigeons(
         rounds_info.append(dict(
             round=rnd + 1, sweeps=n_sweeps, seconds=time.perf_counter() - t_round,
             L_longest=int(L_round.max()), L_median=float(np.median(L_round)),
+            acceptance=np.mean(acc_round, axis=0),
             barrier=float(barrier),
             barrier_variational=float(barrier_var) if Nv else None,
             round_trips=n_round_trips,

@@ -310,6 +310,12 @@ DISTS = [
     ("LogUniform", (0.01, 10.0), np.array([-1.0, 0.0, 0.01, 0.1, 5.0, 10.0, 11.0])),
     ("TruncatedNormal", (1.2, 0.1, 0.1, math.inf), np.array([0.0, 0.1, 0.2, 1.2, 2.0])),
     ("Sine", (), np.array([-0.1, 0.0, 1e-9, 0.5, math.pi / 2, 3.0, math.pi, 4.0])),
+    ("Exponential", (2.0,), np.array([-1.0, 0.0, 1e-9, 0.5, 2.0, 30.0])),
+    ("Beta", (2.0, 5.0), np.array([-0.1, 0.0, 1e-9, 0.2, 0.5, 0.99, 1.0, 1.5])),
+    ("Gamma", (0.7, 1.5), np.array([-1.0, 0.0, 1e-9, 0.3, 1.0, 4.0, 20.0])),
+    ("UniformImproper", (), np.array([-1e6, -1.0, 0.0, 0.5, 3.0, 1e6])),
+    ("KDEDist", (np.random.default_rng(0).normal(1.0, 0.3, 500),),
+     np.array([-1.0, 0.0, 0.2, 0.7, 1.0, 1.33, 1.8, 3.0])),
 ]
 
 

@@ -202,8 +202,8 @@ def _port_partial_arc_model(mj):
 
 def test_unported_options_raise():
     m = _conjugate(ot, tdist, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ot.octofit_pigeons(m, explorer="nuts", verbosity=0)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ot.octofit(m, sampler="gibbs", verbosity=0)
     with pytest.raises(NotImplementedError, match="item 18"):
         ot.octofit_pigeons(m, explorer="chees", mesh=object(), verbosity=0)
     with pytest.raises(ValueError, match="n_chains_variational"):
@@ -217,6 +217,7 @@ def test_unported_options_raise():
 @pytest.mark.parametrize("explorer, kw, mean_tol, logz_tol", [
     ("chees", dict(n_rounds=7, n_walkers=32), 0.05, 0.25),
     ("hmc", dict(n_rounds=6, n_walkers=32, explorer_n_leapfrog=8), 0.05, 0.2),
+    ("nuts", dict(n_rounds=6, n_walkers=32, explorer_max_depth=5), 0.05, 0.25),
 ])
 def test_conjugate_posterior_and_evidence(explorer, kw, mean_tol, logz_tol):
     """tests/test_tempering.py's conjugate checks, with its tolerances."""
