@@ -57,7 +57,8 @@ non-zero:
    astrometry, HGCA with N_ave = 5, zero-point-marginalized RV; 70 epochs,
    D = 15), its data made from seed 0 with the port's orbitsolve on the
    CPU in float64, in float32 on the GPU, checked against a float64 CPU
-   model, then `octofit` as in 5 with the same gates, the posterior
+   model, then `octofit` as in 5 with the same gates at 400 adaptation
+   steps + 200 draws, the posterior
    medians of b_mass and b_a within 5 sd of 12 Mjup and 9 AU, and the
    Kepler kernel held to its twin at the shapes this run launched it with;
 10. partial-arc parallel tempering (`bench.py:218-296`): the headline
@@ -76,7 +77,7 @@ non-zero:
    this run launched it with;
 11. PT with the NUTS explorer: `octofit_pigeons` on the partial-arc model
    that 10 initialized, the same ladder at 256 walkers, explorer="nuts"
-   with explorer_max_depth 8, 3 rounds; gates: finite draws, log-evidence
+   with explorer_max_depth 8, 2 rounds; gates: finite draws, log-evidence
    and barriers, every rung's explorer acceptance in (0, 1], the fused pair
    on every annealed evaluation;
 12. OFTI rejection (`examples/09_ofti_rejection.py`): the model with the
@@ -88,7 +89,30 @@ non-zero:
    at the shapes this run launched it with, in both precisions, and timed;
 13. diagnostics: `ess_rhat_batch_device` on the card against the numpy
    oracle `ess_rhat_batch`, both timed, on the headline and joint draws
-   and on a synthetic case past S = 2^23 draws with ties.
+   and on a synthetic case past S = 2^23 draws with ties;
+14. calibration fit (a discrete prior marginalized): the headline model
+   with cal ~ Categorical(0.5, 0.5) choosing a plate scale of 1 or
+   CAL_SCALE for data recorded at CAL_SCALE (K = 2), float32 on the GPU
+   checked against a float64 CPU model, then `octofit` with
+   initialization at 4096 chains, CAL_ADAPTATION + CAL_ITERATIONS, with the
+   gates of 5 and the posterior mean of the discrete column above 0.9;
+   then the Kepler kernel held to its twin at the shapes its Laplace step
+   launched it with;
+15. outlier fit (Gibbs-within-HMC): the headline model at 13 epochs, one
+   displaced, with one Categorical(0.9, 0.1) outlier flag per epoch
+   widening that epoch's errors (K = 2^13), checked against a float64 CPU
+   model, `octofit` at 4096 chains from 14's starting points, which must
+   switch to Gibbs by itself; gates: finite draws, max split-R-hat < 1.05,
+   the displaced epoch's flag mean above 0.9 and the others below 0.2,
+   the median of b_a within 5 sd of 7, the fused pair on every gradient
+   evaluation and the fused forward once per flag per sweep;
+16. cap case: the outlier model at 12 epochs (K = 4096, the most that
+   are marginalized), one float32 value-and-gradient evaluation at 256
+   chains (1,048,576 rows), its peak memory and chunks printed, held
+   against the float64 CPU model, then forced into 8 chunks (each
+   recomputed in the backward pass) and held against the one pass;
+17. the fused pair against its plain versions, and timed, in float32 at
+   the discrete paths' shapes. Every phase from 14 on prints its seconds.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -100,7 +124,12 @@ shape under `joint_*` keys, and at the partial-arc PT path's under `pt_*`
 keys, each with that path's launches, with the launches of the NUTS, HMC,
 PT-NUTS and rejection paths, the fused pair at the NUTS path's shape under
 `nuts_*` keys and the Kepler kernel at the rejection path's bulk shape, in
-float64, under `rejection_*` keys; the last is
+float64, under `rejection_*` keys, and for the discrete paths the launches
+of the calibration, outlier and cap runs under `marg_launches`,
+`gibbs_launches` and `cap_launches`, the Kepler kernel at the calibration
+fit's Laplace shape under `marg_*` and the fused pair at each discrete
+shape under `marg_*`, `gibbs_*` (the HMC leg), `gibbs_sweep_*` and `cap_*`;
+the last is
 `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -125,6 +154,9 @@ JOINT_MASS = 12.0
 JOINT_EPOCHS = 70
 JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
 CHAINS, ADAPTATION, ITERATIONS = 4096, 700, 300
+# the joint fit's adaptation and draws, cut from the headline's to make
+# room for the discrete fits
+JOINT_ADAPTATION, JOINT_ITERATIONS = 400, 200
 # NUTS and jittered HMC (`octofit(sampler="nuts" | "hmc")`) on the headline
 # model the ChEES phase initialized: every chain adapts its own step size
 # and dense metric, all chains step in lockstep
@@ -137,7 +169,7 @@ HMC_ADAPTATION, HMC_ITERATIONS, HMC_MAX_DEPTH = 50, 50, 4
 PA_SPAN = (56800.0, 57400.0)
 PA_KWARGS = dict(n_chains=8, n_chains_variational=8, n_walkers=4096,
                  explorer="chees", explorer_n_leapfrog=512)
-PT_ROUNDS = 6
+PT_ROUNDS = 5
 # No replica completes a round trip on this ladder in the rounds that fit
 # (an NVIDIA H100 run, 5 to 7 rounds): the prior rung's IID draws lie
 # 1e4-1e6 nats below rung 1, so the pair at either reference rejects every
@@ -150,8 +182,26 @@ PT_CHAINS = PA_KWARGS["n_walkers"] * (PA_KWARGS["n_chains"] + PA_KWARGS["n_chain
 # the same ladder with the JAX package's default explorer, NUTS, at fewer
 # walkers and rounds
 PT_NUTS_KWARGS = dict(PA_KWARGS, explorer="nuts", explorer_max_depth=8, n_walkers=256)
-PT_NUTS_ROUNDS = 3
+PT_NUTS_ROUNDS = 2
 PT_NUTS_CHAINS = PT_CHAINS // PA_KWARGS["n_walkers"] * PT_NUTS_KWARGS["n_walkers"]
+
+# Discrete priors on the headline model. The calibration fit: a choice of
+# plate scale, 1 or CAL_SCALE, for data recorded at CAL_SCALE; K = 2
+# combinations, marginalized. A plate scale s trades against a / s and
+# M / s^3, which the M prior sets apart: at 1.2 the cal = 0 mode lies more
+# than 10 nats below (tests/test_torch_discrete.py), at 1.05 within one. The outlier fit: one flag per epoch of 13,
+# the epoch at OUTLIER_INDEX displaced by OUTLIER_SHIFT mas; K = 2^13, the
+# Gibbs mode. The cap case: the outlier model at 12 epochs, K = 4096
+# combinations, the most that are marginalized, at CAP_CHAINS chains.
+CAL_SCALE = 1.2
+CAL_ADAPTATION, CAL_ITERATIONS = 400, 200
+OUTLIER_EPOCHS, OUTLIER_INDEX, OUTLIER_SHIFT = 13, 5, (60.0, -40.0)
+# Gibbs-within-HMC adapts each chain's dense metric in Stan's windows, which
+# below 150 warmup steps are one window over the middle 75% of the warmup:
+# 149 steps is the longest such warmup (a 112-draw window). A 100-step
+# warmup's 75-draw window left R-hat at 1.19 after 50 draws (PERF.md)
+GIBBS_ADAPTATION, GIBBS_ITERATIONS = 149, 150
+CAP_EPOCHS, CAP_CHAINS = 12, 256
 
 # the OFTI workflow (`examples/09_ofti_rejection.py`): 8 epochs of relative
 # astrometry, the Thiele-Innes constants marginalized analytically, sampled
@@ -398,6 +448,9 @@ def forward_instantiation(t, out) -> int:
     return n if packed else 1
 
 
+HEADLINE_GRID = (55000.0, 59500.0)
+
+
 def orbit_phase(osk, elements, chains: int) -> dict:
     """Fused forward and backward kernels against their plain versions on
     the card, then their timings. Returns, per kernel, the float32 error
@@ -405,15 +458,23 @@ def orbit_phase(osk, elements, chains: int) -> dict:
     256 walkers x 16 rungs), the NUTS path's, the joint fit's, the
     partial-arc ladder's (all its walkers and rungs, on its 600-day arc) and
     the large one."""
-    res = {"fwd": {}, "bwd": {}}
-    headline_grid = (55000.0, 59500.0)
-    shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS, None, headline_grid),
-              (f"({NUTS_CHAINS}, {N_EPOCHS})", NUTS_CHAINS, N_EPOCHS, None, headline_grid),
+    shapes = ((f"({chains}, {N_EPOCHS})", chains, N_EPOCHS, None, HEADLINE_GRID),
+              (f"({NUTS_CHAINS}, {N_EPOCHS})", NUTS_CHAINS, N_EPOCHS, None, HEADLINE_GRID),
               (f"({chains}, {JOINT_EPOCHS})", chains, JOINT_EPOCHS, JOINT_SPAN, None),
               (f"({PT_CHAINS}, {N_EPOCHS})", PT_CHAINS, N_EPOCHS, None, PA_SPAN),
-              (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS, None, headline_grid))
+              (f"({BIG_CHAINS}, {BIG_EPOCHS})", BIG_CHAINS, BIG_EPOCHS, None, HEADLINE_GRID))
+    res = orbit_shapes_phase(osk, elements, shapes, (torch.float32, torch.float64))
+    kep_orbit_phase(osk, elements, chains)
+    return res
+
+
+def orbit_shapes_phase(osk, elements, shapes, dtypes) -> dict:
+    """The fused pair against its plain versions, then timed, at each of
+    `shapes` ((label, chains, epochs, span, grid), see `_orbit_inputs`) in
+    each of `dtypes`: {"fwd"|"bwd": {(label, dtype): numbers}}."""
+    res = {"fwd": {}, "bwd": {}}
     for label, n_chains, n_epochs, span, grid in shapes:
-        for dtype in (torch.float32, torch.float64):
+        for dtype in dtypes:
             elems, t = _orbit_inputs(n_chains, n_epochs, dtype, span, grid)
             leaf = elems.clone().requires_grad_(True)
             plain = torch.stack(elements._kep_visual_fields(elements.VisualOrbit(*leaf), t))
@@ -490,9 +551,12 @@ def orbit_phase(osk, elements, chains: int) -> dict:
                     err_over_tol=float(worst.max()) if name == "fwd" else worst_b / BWD_TOL[dtype])
             del plain, leaf, g, g_plain, out, err, ratio
             torch.cuda.empty_cache()
+    return res
 
-    # a KepOrbit (no parallax): NaN sky fields forward, and a backward that
-    # leaves them out, against autograd through the plain version
+
+def kep_orbit_phase(osk, elements, chains: int) -> None:
+    """A KepOrbit (no parallax): NaN sky fields forward, and a backward that
+    leaves them out, against autograd through the plain version."""
     for dtype in (torch.float32, torch.float64):
         elems, t = _orbit_inputs(chains, N_EPOCHS, dtype)
         elems[7] = math.nan
@@ -517,12 +581,13 @@ def orbit_phase(osk, elements, chains: int) -> dict:
             f"{float(g_k[7].abs().max()):.1e}")
         if not (worst_b <= BWD_TOL[dtype] and float(g_k[7].abs().max()) == 0.0):
             raise AssertionError(f"KepOrbit backward disagrees with autograd in {dtype}")
-    return res
 
 
-def build_model(ot, table, name="bench", **model_kw):
+def build_model(ot, table, name="bench", astrom_variables=None, **model_kw):
+    """The headline model (`bench.py:build_model`) with either package's
+    API (`ot` is the package), with optional variables on its astrometry."""
     dist = ot.distributions
-    astrom = ot.PlanetRelAstromObs(table, name="simdata")
+    astrom = ot.PlanetRelAstromObs(table, variables=astrom_variables, name="simdata")
     b = ot.Planet(
         name="b",
         basis="Visual{KepOrbit}",
@@ -551,19 +616,57 @@ def build_model(ot, table, name="bench", **model_kw):
     return ot.LogDensityModel(system, verbosity=0, **model_kw)
 
 
-def bench_table(ot, t0=55000.0, t1=59500.0):
+def bench_table(ot, t0=55000.0, t1=59500.0, n_epochs=N_EPOCHS):
     """`bench.py:build_model(t0, t1)`'s data, simulated with the port's
     orbitsolve: the headline's by default, the partial arc's for PA_SPAN."""
     rng = np.random.default_rng(0)
-    epochs = np.linspace(t0, t1, N_EPOCHS)
-    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE), epochs)
+    epochs = np.linspace(t0, t1, n_epochs)
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE, device="cpu"), epochs)
     return dict(
         epoch=epochs,
-        ra=ot.orbits.raoff(sol).numpy() + rng.standard_normal(N_EPOCHS) * 2.0,
-        dec=ot.orbits.decoff(sol).numpy() + rng.standard_normal(N_EPOCHS) * 2.0,
-        σ_ra=np.full(N_EPOCHS, 2.0),
-        σ_dec=np.full(N_EPOCHS, 2.0),
+        ra=ot.orbits.raoff(sol).numpy() + rng.standard_normal(n_epochs) * 2.0,
+        dec=ot.orbits.decoff(sol).numpy() + rng.standard_normal(n_epochs) * 2.0,
+        σ_ra=np.full(n_epochs, 2.0),
+        σ_dec=np.full(n_epochs, 2.0),
     )
+
+
+def calibration_table(ot, scale=CAL_SCALE) -> dict:
+    """The headline's data as an instrument whose plate scale is `scale`
+    would record them: the offsets divided by `scale`."""
+    t = bench_table(ot)
+    return dict(t, ra=t["ra"] / scale, dec=t["dec"] / scale)
+
+
+def build_calibration_model(pkg, table, scale=CAL_SCALE, **model_kw):
+    """The headline model (either package, `pkg`) with a choice between two
+    instrument calibrations: cal ~ Categorical(0.5, 0.5) picks a plate
+    scale of 1 or `scale`. K = 2 combinations: marginalized."""
+    variables = dict(cal=pkg.distributions.Categorical(probs=(0.5, 0.5)),
+                     platescale=lambda s, pl, o: 1.0 + (scale - 1.0) * o.cal)
+    return build_model(pkg, table, name="bench_calibration", astrom_variables=variables,
+                       **model_kw)
+
+
+def outlier_table(ot, n_epochs=OUTLIER_EPOCHS) -> dict:
+    """The headline's orbit and noise at `n_epochs` epochs, the epoch at
+    OUTLIER_INDEX displaced by OUTLIER_SHIFT (mas in ra, dec)."""
+    t = bench_table(ot, n_epochs=n_epochs)
+    ra, dec = t["ra"].copy(), t["dec"].copy()
+    ra[OUTLIER_INDEX] += OUTLIER_SHIFT[0]
+    dec[OUTLIER_INDEX] += OUTLIER_SHIFT[1]
+    return dict(t, ra=ra, dec=dec)
+
+
+def build_outlier_model(pkg, table, **model_kw):
+    """The headline model (either package, `pkg`) with one outlier flag per
+    epoch: flag ~ IIDVector(Categorical(0.9, 0.1), T), and a flagged
+    epoch's errors widened by a jitter of 100 mas. K = 2^T combinations:
+    marginalized up to T = 12, the Gibbs mode from T = 13."""
+    n = len(table["epoch"])
+    variables = dict(flag=pkg.IIDVector(pkg.distributions.Categorical(probs=(0.9, 0.1)), n),
+                     jitter=lambda s, pl, o: 100.0 * o.flag)
+    return build_model(pkg, table, name="bench_outlier", astrom_variables=variables, **model_kw)
 
 
 def joint_data(ot) -> dict:
@@ -575,7 +678,7 @@ def joint_data(ot) -> dict:
     o = ot.orbits
     pm = dict(pmra=4.6, pmdec=83.0)
     rng = np.random.default_rng(0)
-    orbit = ot.VisualOrbit.from_params(**JOINT_TRUE)
+    orbit = ot.VisualOrbit.from_params(**JOINT_TRUE, device="cpu")
     m = JOINT_MASS * MJUP2MSOL
 
     epochs = np.linspace(55000.0, 58500.0, 10)
@@ -661,7 +764,7 @@ def ofti_data(ot) -> dict:
     as there (seed 42, 8 epochs, 10 mas noise) with the port's orbitsolve
     on the CPU in float64."""
     epochs = np.linspace(50000.0, 50840.0, OFTI_EPOCHS)
-    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**OFTI_TRUE), epochs)
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**OFTI_TRUE, device="cpu"), epochs)
     rng = np.random.default_rng(42)
     ra = ot.orbits.raoff(sol).numpy() + rng.standard_normal(OFTI_EPOCHS) * 10.0
     dec = ot.orbits.decoff(sol).numpy() + rng.standard_normal(OFTI_EPOCHS) * 10.0
@@ -705,7 +808,7 @@ def build_ofti_model(ot, data, **model_kw):
 def joint_points_near_truth(ot, model, n, seed):
     """`n` unconstrained points of the joint model: the truth (RV jitter
     5 m/s) plus N(0, 1e-3) in every coordinate."""
-    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**JOINT_TRUE), np.array([57000.0]))
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**JOINT_TRUE, device="cpu"), np.array([57000.0]))
     theta = float(ot.orbits.posangle(sol)[0])
     t = JOINT_TRUE
     nat = torch.tensor([[t["M"], t["plx"], 4.6, 83.0, 5.0, t["a"], t["e"], t["i"],
@@ -738,10 +841,10 @@ def reference_phase(label, model, ref, pts) -> None:
         raise AssertionError(f"{label}: float32 GPU ln_post disagrees with the float64 CPU model")
 
 
-def headline_points(ot, ref):
-    """64 unconstrained points of the headline model near the truth."""
+def headline_points(ot, ref, n=64):
+    """`n` unconstrained points of the headline model near the truth."""
     # theta is the position angle at the reference epoch 57000
-    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE), np.array([57000.0]))
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE, device="cpu"), np.array([57000.0]))
     theta = float(ot.orbits.posangle(sol)[0])
     nat = torch.tensor([[TRUE["M"], TRUE["plx"], TRUE["a"], TRUE["e"], TRUE["i"],
                          np.cos(TRUE["omega"]), np.sin(TRUE["omega"]),
@@ -749,7 +852,7 @@ def headline_points(ot, ref):
                          np.cos(theta), np.sin(theta)]],
                        dtype=torch.float64)
     gen = torch.Generator().manual_seed(5)
-    return ref.link(nat) + 1e-3 * torch.randn((64, ref.D), generator=gen, dtype=torch.float64)
+    return ref.link(nat) + 1e-3 * torch.randn((n, ref.D), generator=gen, dtype=torch.float64)
 
 
 def _reset_launches(kk, osk) -> None:
@@ -1131,6 +1234,201 @@ def rejection_phase(ot, kk, osk) -> dict:
             "n_batches": n_batches, "acceptance_rate": rate}
 
 
+def calibration_phase(ot, kk, osk) -> dict:
+    """The calibration fit (discrete prior marginalized, K = 2): the float32
+    GPU model checked against a float64 CPU model, then `octofit` with
+    initialization at CHAINS chains through `fit_phase` and its gates, and
+    the discrete column: the posterior mean of b_simdata_cal above 0.9 (the
+    data were recorded at CAL_SCALE), the median of b_a within 5 sd of 7."""
+    t0 = time.perf_counter()
+    table = calibration_table(ot)
+    model = build_calibration_model(ot, table, device="cuda", dtype=torch.float32)
+    ref = build_calibration_model(ot, table, device="cpu", dtype=torch.float64)
+    if not (model.discrete_mode == "marginalize" and model.discrete_names == ["b_simdata_cal"]):
+        raise AssertionError(f"calibration: mode {model.discrete_mode}, {model.discrete_names}")
+    reference_phase("calibration", model, ref, headline_points(ot, ref))
+    res = fit_phase(ot, kk, osk, model, "calibration fit (marginalized, K = 2)", CHAINS,
+                    CAL_ADAPTATION, CAL_ITERATIONS)
+    cal = res["chain"]["b_simdata_cal"]
+    log(f"  posterior mean of b_simdata_cal {float(cal.mean()):.5f} (data at plate scale "
+        f"{CAL_SCALE}: cal = 1)")
+    if not float(cal.mean()) > 0.9:
+        raise AssertionError(f"calibration: mean b_simdata_cal {float(cal.mean())} <= 0.9")
+    _gate_median("calibration", res["chain"], "b_a", TRUE["a"])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"calibration phase: {res['seconds']:.2f} s")
+    return res
+
+
+def outlier_phase(ot, kk, osk, init_model, adaptation=None, iterations=None) -> dict:
+    """The outlier fit (Gibbs-within-HMC, K = 2^13): the float32 GPU model
+    checked against a float64 CPU model, then `octofit` at CHAINS chains
+    from `init_model`'s starting points and Laplace covariance (the same 11
+    continuous parameters), which must switch to Gibbs by itself, every
+    launch count set to 0 just before and read just after. Gates: finite
+    draws, max split-R-hat < 1.05 on the continuous parameters by the
+    device diagnostics, the displaced epoch's flag mean above 0.9 and every
+    other flag's below 0.2, the median of b_a within 5 sd of 7, the fused
+    pair on every value-and-gradient evaluation and the fused forward alone
+    once per discrete variable per sweep. adaptation and iterations:
+    GIBBS_ADAPTATION and GIBBS_ITERATIONS unless given."""
+    adaptation = GIBBS_ADAPTATION if adaptation is None else adaptation
+    iterations = GIBBS_ITERATIONS if iterations is None else iterations
+    t0 = time.perf_counter()
+    table = outlier_table(ot)
+    model = build_outlier_model(ot, table, device="cuda", dtype=torch.float32)
+    ref = build_outlier_model(ot, table, device="cpu", dtype=torch.float64)
+    n_disc = len(model.discrete_names)
+    if not (model.discrete_mode == "gibbs" and n_disc == OUTLIER_EPOCHS):
+        raise AssertionError(f"outlier: mode {model.discrete_mode}, {n_disc} discrete variables")
+    reference_phase("outlier", model, ref, headline_points(ot, ref))
+    model.starting_points = init_model.starting_points
+    model.laplace_sigma = init_model.laplace_sigma
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kk, osk)
+    chain = ot.octofit(model, chains=CHAINS, adaptation=adaptation, iterations=iterations,
+                       generator=gen, verbosity=1)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    info = chain.info
+    t_sampling, n_evals, n_sweep = (info["sampling_time_s"], info["n_grad_evals"],
+                                    info["n_sweep_evals"])
+    names = model.parameter_names
+    x = np.stack([chain[n] for n in names], axis=-1)
+    ess, rhat = ot.ess_rhat_batch_device(x)
+    k_min = int(np.nanargmin(ess))
+    ess_min, rhat_max = float(ess[k_min]), float(np.nanmax(rhat))
+    flags = np.array([float(chain[f"b_simdata_flag_{j + 1}"].mean()) for j in range(n_disc)])
+    log(f"outlier fit (Gibbs-within-HMC, K = 2^{n_disc}): {CHAINS} chains, {adaptation} "
+        f"adaptation + {iterations} draws, float32, sampler {info['sampler']}")
+    log(f"  sampling {t_sampling:.2f} s: {n_evals} batched value-and-gradient evaluations and "
+        f"{n_sweep} sweep evaluations ({t_sampling / (n_evals + n_sweep) * 1e6:.1f} us per "
+        f"evaluation on average), mean acceptance "
+        f"{float(chain.internals['acceptance_rate'].mean()):.4f}, divergences "
+        f"{int(chain.internals['is_divergent'].sum())}")
+    log(f"  min rank-normalized ESS {ess_min:.1f} on {names[k_min]} "
+        f"({ess_min / (CHAINS * iterations):.4f} per draw), max split-R-hat {rhat_max:.5f}, "
+        f"ESS/s {ess_min / t_sampling:.1f}")
+    log(f"  flag means {np.round(flags, 4).tolist()} (epoch {OUTLIER_INDEX} displaced)")
+    log(f"  kernel launches: {launches}; peak device memory {peak_gib:.3f} GiB")
+    if info["sampler"] != "gibbs_vectorized":
+        raise AssertionError(f"outlier: octofit ran {info['sampler']}, not Gibbs-within-HMC")
+    if not bool(np.isfinite(x).all()):
+        raise AssertionError("outlier: non-finite draws")
+    if not rhat_max < 1.05:
+        raise AssertionError(f"outlier: max split-R-hat {rhat_max} >= 1.05")
+    others = np.delete(flags, OUTLIER_INDEX)
+    if not (flags[OUTLIER_INDEX] > 0.9 and bool((others < 0.2).all())):
+        raise AssertionError(f"outlier: flag means {flags.tolist()}")
+    _gate_median("outlier", chain, "b_a", TRUE["a"])
+    if launches["orbit_solve_bwd"] != n_evals:
+        raise AssertionError(f"outlier: {launches['orbit_solve_bwd']} fused backward launches for "
+                             f"{n_evals} gradient evaluations")
+    if launches["orbit_solve_fwd"] - launches["orbit_solve_bwd"] != n_sweep:
+        raise AssertionError(f"outlier: the fused forward ran {launches['orbit_solve_fwd']} times, "
+                             f"not once per gradient evaluation and once per variable per sweep")
+    seconds = time.perf_counter() - t0
+    log(f"outlier phase: {seconds:.2f} s")
+    return {"launches": launches, "x": x, "n_evals": n_evals, "n_sweep": n_sweep,
+            "seconds": seconds, "t_sampling": t_sampling}
+
+
+# The cap case, float32 GPU against float64 CPU: ln_post within
+# reference_phase's limit, the gradient within CAP_GRAD_TOL of each chain's
+# largest entry (an NVIDIA H100 80GB HBM3 reads 1.374e-3 at these points).
+CAP_GRAD_TOL = 1e-2
+CAP_CHECK_CHAINS = 4
+
+
+def cap_phase(ot, kk, osk) -> dict:
+    """The outlier model at 12 epochs, K = 4096 combinations, the most that
+    are marginalized: one float32 `ln_post_and_grad` at CAP_CHAINS chains
+    (CAP_CHAINS x 4096 rows), its launch counts set to 0 just before, its
+    peak device memory and number of chunks printed; held against the
+    float64 CPU model at CAP_CHECK_CHAINS chains; then the same evaluation
+    forced into chunks of 512 combinations, each recomputed in the backward
+    pass, held against the one-pass result, with its own peak memory."""
+    t0 = time.perf_counter()
+    table = outlier_table(ot, CAP_EPOCHS)
+    model = build_outlier_model(ot, table, device="cuda", dtype=torch.float32)
+    ref = build_outlier_model(ot, table, device="cpu", dtype=torch.float64)
+    K = len(model._disc_combos) if model._disc_combos is not None else 0
+    if not (model.discrete_mode == "marginalize" and K == 4096):
+        raise AssertionError(f"cap: mode {model.discrete_mode}, K = {K}")
+    pts = headline_points(ot, ref, CAP_CHAINS)
+
+    def evaluate():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        lp, g = model.ln_post_and_grad(pts)
+        torch.cuda.synchronize()
+        return lp, g, time.perf_counter() - t, torch.cuda.max_memory_allocated() - before
+
+    model.ln_post_and_grad(pts)  # warm-up
+    _reset_launches(kk, osk)
+    lp, g, dt, peak = evaluate()
+    launches = _launches(kk, osk)
+    chunk = min(K, model._combo_chunk(CAP_CHAINS))
+    n_chunks = -(-K // chunk)
+    rows = CAP_CHAINS * K
+    log(f"cap case: {CAP_CHAINS} chains x {K} combinations = {rows} rows x {CAP_EPOCHS} epochs, "
+        f"float32: one ln_post_and_grad in {dt * 1e3:.1f} ms, {n_chunks} chunk(s) of {chunk} "
+        f"combinations, peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak / (rows * CAP_EPOCHS):.1f} bytes per row and epoch); launches {launches}")
+    if not (bool(torch.isfinite(lp).all()) and bool(torch.isfinite(g).all())):
+        raise AssertionError("cap: non-finite ln_post or gradient")
+    if launches["orbit_solve_fwd"] < 1 or launches["orbit_solve_bwd"] < 1:
+        raise AssertionError("cap: the fused pair was not launched")
+
+    lp64, g64 = ref.ln_post_and_grad(pts[:CAP_CHECK_CHAINS])
+    d_lp = (lp[:CAP_CHECK_CHAINS].double().cpu() - lp64).abs()
+    d_g = float(((g[:CAP_CHECK_CHAINS].double().cpu() - g64).abs().amax(dim=1)
+                 / g64.abs().amax(dim=1)).max())
+    log(f"  against the float64 CPU model at {CAP_CHECK_CHAINS} chains: max |d ln_post| "
+        f"{float(d_lp.max()):.4e} (tol 0.5 + 1e-4 |ln_post|, ln_post in "
+        f"[{float(lp64.min()):.2f}, {float(lp64.max()):.2f}]); gradient {d_g:.3e} of each "
+        f"chain's largest entry (tol {CAP_GRAD_TOL:.0e})")
+    if not (bool((d_lp <= 0.5 + 1e-4 * lp64.abs()).all()) and d_g <= CAP_GRAD_TOL):
+        raise AssertionError("cap: the float32 GPU evaluation disagrees with the float64 CPU model")
+
+    model._combo_chunk = lambda n_theta: 512
+    lp_c, g_c, dt_c, peak_c = evaluate()
+    del model._combo_chunk
+    d_lp_c = float((lp_c - lp).abs().max())
+    d_g_c = float(((g_c - g).abs().amax(dim=1) / g.abs().amax(dim=1)).max())
+    log(f"  forced into {K // 512} chunks of 512, each recomputed in the backward pass: "
+        f"{dt_c * 1e3:.1f} ms, peak device memory {peak_c / 2**30:.3f} GiB; against one pass: "
+        f"max |d ln_post| {d_lp_c:.3e}, gradient {d_g_c:.3e} of each chain's largest entry "
+        f"(tol 1e-4)")
+    if not (d_lp_c <= 1e-4 * float(lp.abs().max()) and d_g_c <= 1e-4):
+        raise AssertionError("cap: the chunked evaluation disagrees with the one-pass one")
+    seconds = time.perf_counter() - t0
+    log(f"cap phase: {seconds:.2f} s")
+    return {"launches": launches, "peak_bytes": peak, "chunks": n_chunks, "ms": dt * 1e3,
+            "seconds": seconds}
+
+
+def discrete_kernel_phase(osk, elements) -> dict:
+    """The fused pair against its plain versions, and timed, in float32 at
+    the discrete paths' shapes: the calibration fit's (CHAINS x 2, 12), the
+    Gibbs sweep's (CHAINS x 2, 13), the Gibbs HMC leg's (CHAINS, 13) and the
+    cap case's (CAP_CHAINS x 4096, 12)."""
+    t0 = time.perf_counter()
+    shapes = ((f"({2 * CHAINS}, {N_EPOCHS})", 2 * CHAINS, N_EPOCHS, None, HEADLINE_GRID),
+              (f"({2 * CHAINS}, {OUTLIER_EPOCHS})", 2 * CHAINS, OUTLIER_EPOCHS, None,
+               HEADLINE_GRID),
+              (f"({CHAINS}, {OUTLIER_EPOCHS})", CHAINS, OUTLIER_EPOCHS, None, HEADLINE_GRID),
+              (f"({CAP_CHAINS * 4096}, {CAP_EPOCHS})", CAP_CHAINS * 4096, CAP_EPOCHS, None,
+               HEADLINE_GRID))
+    res = orbit_shapes_phase(osk, elements, shapes, (torch.float32,))
+    log(f"discrete kernel phase: {time.perf_counter() - t0:.2f} s")
+    return res
+
+
 # The device diagnostics against the numpy oracle on the same float32
 # draws: the JAX package's own float32 tolerances for the same comparison
 # (tests/test_chains_batch.py), ESS to 2e-3 and R-hat to 1e-4 relative.
@@ -1329,7 +1627,7 @@ def main() -> int:
     pres = kepler_path_phase(kk, kepler_mod, main["kepler_shapes"])
     fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
     nuts = nuts_path_phase(ot, kk, osk, main["model"])
-    joint = joint_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
+    joint = joint_path_phase(ot, kk, osk, CHAINS, JOINT_ADAPTATION, JOINT_ITERATIONS)
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
     pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
     ptres = kepler_path_phase(kk, kepler_mod, pt["kepler_shapes"])
@@ -1337,6 +1635,11 @@ def main() -> int:
     rej = rejection_phase(ot, kk, osk)
     rres = kepler_path_phase(kk, kepler_mod, rej["kepler_shapes"])
     diagnostics_phase(ot, [("headline", main["x"]), ("joint", joint["x"])])
+    cal = calibration_phase(ot, kk, osk)
+    cres = kepler_path_phase(kk, kepler_mod, cal["kepler_shapes"])
+    outlier = outlier_phase(ot, kk, osk, cal["model"])
+    cap = cap_phase(ot, kk, osk)
+    dres = discrete_kernel_phase(osk, elements)
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -1444,6 +1747,41 @@ def main() -> int:
                 "nuts_bound_ms": nuts_rows[kname][1][0],
                 "pt_nuts_shape": pt_nuts_shape,
             })
+    # the discrete paths: the calibration fit (marginalized, K = 2), the
+    # outlier fit (Gibbs) and the cap case (K = 4096), each kernel at the
+    # shapes they launch it with
+    marg_shape, sweep_shape = f"({2 * CHAINS}, {N_EPOCHS})", f"({2 * CHAINS}, {OUTLIER_EPOCHS})"
+    gibbs_shape = f"({CHAINS}, {OUTLIER_EPOCHS})"
+    cap_shape = f"({CAP_CHAINS * 4096}, {CAP_EPOCHS})"
+    cal_kepler_shape = max(cal["kepler_shapes"], key=lambda s: int(np.prod(s)))
+    cal_kepler_row = cres[(cal_kepler_shape, f32)]
+    discrete_rows = {
+        "marg": (cal_kepler_row, bound_ms(12 * cal_kepler_row["n"],
+                                          OPS_KEPLER * cal_kepler_row["n"], f32))}
+    for kname in ("orbit_solve_fwd", "orbit_solve_bwd"):
+        part = "fwd" if kname.endswith("fwd") else "bwd"
+        bnd = fwd_bound if part == "fwd" else bwd_bound
+        for key, label, b, t in (("marg", marg_shape, 2 * CHAINS, N_EPOCHS),
+                                 ("gibbs", gibbs_shape, CHAINS, OUTLIER_EPOCHS),
+                                 ("gibbs_sweep", sweep_shape, 2 * CHAINS, OUTLIER_EPOCHS),
+                                 ("cap", cap_shape, CAP_CHAINS * 4096, CAP_EPOCHS)):
+            discrete_rows[(kname, key)] = (label, dres[part][(label, f32)], bnd(b, t))
+    for k in kernels:
+        kname = k["name"]
+        k.update({"marg_launches": cal["launches"][kname],
+                  "gibbs_launches": outlier["launches"][kname],
+                  "cap_launches": cap["launches"][kname]})
+        if kname == "kepler_solve":
+            row, bnd = discrete_rows["marg"]
+            k.update({"marg_shape": str(cal_kepler_shape), "marg_max_abs_err": row["err"],
+                      "marg_ms": row["ms"], "marg_plain_ms": row["plain_ms"],
+                      "marg_bound_ms": bnd[0]})
+            continue
+        for key in ("marg", "gibbs", "gibbs_sweep", "cap"):
+            label, row, bnd = discrete_rows[(kname, key)]
+            k.update({f"{key}_shape": label, f"{key}_max_abs_err": row["err"],
+                      f"{key}_ms": row["ms"], f"{key}_plain_ms": row["plain_ms"],
+                      f"{key}_bound_ms": bnd[0]})
     composed_ms, composed_plain_ms = kres["timing"][(small, f32)]
     kernels[0].update({
         "max_abs_err_f64": pres[(path_shape, torch.float64)]["err"],

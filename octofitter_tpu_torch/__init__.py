@@ -4,10 +4,14 @@ The same model-building API as the JAX package (`Planet`, `System`,
 `UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
 likelihoods without Gaussian processes, the continuous priors,
 `LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
-`UserLikelihood` and `DirectLL` user terms, `octofit` with ChEES, NUTS
-and HMC, the parallel-tempering `octofit_pigeons`, `octofit_rejection`,
-`Chains` and the diagnostics, `ess_rhat_batch_device` on the card among
-them), written in PyTorch.
+`UserLikelihood`, `DirectLL` and `BlankLikelihood` user terms, discrete
+priors (`DiscreteUniform`, `Categorical`, `IIDVector`) marginalized or
+sampled by Gibbs-within-HMC, `octofit` with ChEES, NUTS, HMC and Gibbs,
+the parallel-tempering `octofit_pigeons`, `octofit_rejection`, `Chains`
+and the diagnostics, `ess_rhat_batch_device` on the card among them,
+`savechain` / `loadchain`, `generate_from_params` and the package-level
+`drawfrompriors`, `sample_priors`, `initialize`, `startingpoints` and
+`describe`), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -34,6 +38,7 @@ from .model import (
     Params,
     Derived,
     DirectLL,
+    IIDVector,
     Planet,
     System,
     UniformCircular,
@@ -42,6 +47,7 @@ from .model import (
     theta_at_epoch_to_tperi,
     ofti_linear_solve,
     likelihoodname,
+    generate_from_params,
 )
 from .likelihoods import (
     PlanetRelAstromObs,
@@ -61,6 +67,7 @@ from .rv import (
     PlanetRelativeRVLikelihood,
 )
 from . import io
+from .io import savechain, loadchain
 from .config import OctofitterConfig, get_config, set_config
 from .samplers import octofit, octofit_pigeons, octofit_rejection
 from .chains import (
@@ -72,5 +79,42 @@ from .chains import (
     ess_tail_batch,
 )
 from . import interop
+
+
+def describe(chain):
+    """Summary + quantile tables of a Chains (the reference re-exports
+    MCMCChains `describe`, src/Octofitter.jl:47)."""
+    return chain.describe()
+
+
+def drawfrompriors(model, generator):
+    """A structured parameter set drawn from the model's priors (reference
+    `drawfrompriors`, src/variables.jl:1507): `model.drawfrompriors`."""
+    return model.drawfrompriors(generator)
+
+
+def sample_priors(model, generator, n=None):
+    """Flat prior draws, (D,) or (n, D) (reference `sample_priors`,
+    src/sampling.jl:6): `model.sample_priors`."""
+    return model.sample_priors(generator, n)
+
+
+def initialize(model, *args, **kwargs):
+    """Run the starting-point pipeline (reference `initialize!`,
+    src/initialization.jl:184) and return the init chain of starting
+    points, as the reference does: check data entry with it before
+    sampling. (The method `LogDensityModel.initialize` returns the mode
+    in unconstrained coordinates instead.)"""
+    from .model.initialization import starting_points_chain
+
+    model.initialize(*args, **kwargs)
+    return starting_points_chain(model)
+
+
+def startingpoints(model, points):
+    """Set explicit starting points (reference `startingpoints!`,
+    src/initialization.jl:293): `model.startingpoints`."""
+    return model.startingpoints(points)
+
 
 __version__ = "0.1.0"

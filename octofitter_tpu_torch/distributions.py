@@ -1,9 +1,10 @@
-"""Prior distributions (the continuous ones).
+"""Prior distributions.
 
-PyTorch port of `octofitter_tpu/distributions.py:52-447`: Normal,
-Uniform, LogNormal, LogUniform, Exponential, Beta, Gamma, TruncatedNormal
-with `truncated`, Sine, UniformImproper and KDEDist. All but KDEDist stay
-frozen dataclasses, so `LogDensityModel` can stack the priors of one class
+PyTorch port of `octofitter_tpu/distributions.py`: Normal, Uniform,
+LogNormal, LogUniform, Exponential, Beta, Gamma, TruncatedNormal with
+`truncated`, Sine, UniformImproper and KDEDist, and the discrete
+DiscreteUniform and Categorical, which `LogDensityModel` marginalizes or
+samples by Gibbs updates. All but KDEDist stay frozen dataclasses, so `LogDensityModel` can stack the priors of one class
 into a single instance whose fields are tensors (one entry per parameter)
 and evaluate each class in one vector op; a KDEDist is evaluated on its
 own.
@@ -39,6 +40,8 @@ __all__ = [
     "Sine",
     "UniformImproper",
     "KDEDist",
+    "DiscreteUniform",
+    "Categorical",
 ]
 
 _SQRT2 = math.sqrt(2.0)
@@ -55,6 +58,24 @@ def _lgamma(v):
 
 def _uniform(generator, shape, dtype):
     return torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+
+
+def gumbel(generator, shape, dtype):
+    """Standard Gumbel draws -log(-log U), U uniform on [tiny, 1), as
+    `jax.random.gumbel` makes them."""
+    u = torch.clamp(_uniform(generator, shape, dtype), min=torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(logits, generator=None, noise=None):
+    """Index of one draw from softmax(logits) over the last axis by the
+    Gumbel-max trick, argmax(logits + g), as `jax.random.categorical`
+    draws it; g are Gumbel draws from `generator` unless `noise` (of
+    logits' shape) gives them."""
+    if noise is None:
+        noise = gumbel(generator, logits.shape, logits.dtype)
+    return torch.argmax(logits + torch.as_tensor(noise, dtype=logits.dtype,
+                                                 device=logits.device), dim=-1)
 
 
 def _standard_gamma(alpha, generator, shape, dtype):
@@ -86,8 +107,8 @@ def _standard_gamma(alpha, generator, shape, dtype):
 class Distribution:
     """Base class: continuous univariate distribution with static params."""
 
-    #: discrete priors are not part of the port yet (LogDensityModel
-    #: raises NotImplementedError on them)
+    #: discrete distributions are detected by LogDensityModel, which
+    #: marginalizes them or samples them by Gibbs updates
     discrete = False
 
     def logpdf(self, x):
@@ -478,3 +499,80 @@ class KDEDist(Distribution):
 
     def std(self):
         return float(np.std(self.data))
+
+
+# --------------------------------------------------------------------------
+# Discrete distributions (marginalized or Gibbs-sampled by LogDensityModel)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DiscreteUniform(Distribution):
+    """Uniform over the integers a..b inclusive. Detected by
+    LogDensityModel, which marginalizes it over its domain by logsumexp
+    or, for large domain products, samples it by Gibbs updates."""
+
+    a: int = 0
+    b: int = 1
+
+    discrete = True
+
+    def domain(self):
+        return np.arange(int(self.a), int(self.b) + 1)
+
+    def logpmf(self, k):
+        n = int(self.b) - int(self.a) + 1
+        inside = (k >= self.a) & (k <= self.b)
+        return torch.where(inside, torch.full_like(k, -math.log(n)), -math.inf)
+
+    # continuous-interface shims
+    def logpdf(self, x):
+        return self.logpmf(torch.round(x))
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        return torch.randint(int(self.a), int(self.b) + 1, shape, generator=generator,
+                             device=generator.device).to(dtype)
+
+    @property
+    def support(self):
+        return (float(self.a) - 0.5, float(self.b) + 0.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class Categorical(Distribution):
+    """Categorical over explicit values (default 0, 1, ...) with the given
+    probabilities (normalized here). Handled like DiscreteUniform."""
+
+    probs: tuple = (0.5, 0.5)
+    values: tuple | None = None
+
+    discrete = True
+
+    def domain(self):
+        if self.values is not None:
+            return np.asarray(self.values, float)
+        return np.arange(len(self.probs), dtype=float)
+
+    def _logp(self):
+        p = np.asarray(self.probs, float)
+        p = p / p.sum()
+        return np.log(np.maximum(p, 1e-300))
+
+    def logpmf(self, k):
+        out = torch.full_like(k, -math.inf)
+        for v, lp in zip(self.domain(), self._logp()):
+            out = torch.where(k == v, float(lp), out)
+        return out
+
+    def logpdf(self, x):
+        return self.logpmf(x)
+
+    def sample(self, generator, shape=(), dtype=torch.float64):
+        dev = generator.device
+        logp = torch.as_tensor(self._logp(), dtype=dtype, device=dev)
+        idx = categorical(logp.expand(tuple(shape) + logp.shape), generator)
+        return torch.as_tensor(self.domain(), dtype=dtype, device=dev)[idx]
+
+    @property
+    def support(self):
+        dom = self.domain()
+        return (float(dom.min()) - 0.5, float(dom.max()) + 0.5)

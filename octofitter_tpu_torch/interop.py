@@ -18,15 +18,21 @@ from .model.logdensity import LogDensityModel
 
 
 def load_jax_state(model: LogDensityModel, *, parameter_names, starting_points,
-                   laplace_sigma) -> LogDensityModel:
+                   laplace_sigma, discrete_names=()) -> LogDensityModel:
     """Set `starting_points` ((n, D), unconstrained) and `laplace_sigma`
     ((D, D)) from a JAX model on `model`, after checking that both use
-    the same flat parameter order. Returns `model`."""
+    the same flat parameter order and the same discrete variables (the
+    JAX model's `discrete_names`). Returns `model`."""
     names = list(parameter_names)
     if names != list(model.parameter_names):
         raise ValueError(
             f"parameter order differs: JAX model {names}, "
             f"port model {model.parameter_names}"
+        )
+    if list(discrete_names) != list(model.discrete_names):
+        raise ValueError(
+            f"discrete variables differ: JAX model {list(discrete_names)}, "
+            f"port model {model.discrete_names}"
         )
     pts = np.asarray(starting_points, dtype=np.float64)
     sigma = np.asarray(laplace_sigma, dtype=np.float64)

@@ -74,7 +74,7 @@ class PlanetRelAstromObs(AbstractObs):
             # only interior planets perturb the host photocentre, as a
             # weight mask so shapes stay static
             is_inner = (semimajoraxis(ctx.orbits[j]) < a_this) & (j != ctx.i_planet)
-            w = per_epoch(is_inner.to(ra_model.dtype))
+            w = per_epoch(is_inner.to(ra_model.dtype), ctx)
             ra_model = ra_model - w * raoff(sol_other, mass_other)
             dec_model = dec_model - w * decoff(sol_other, mass_other)
         return {"ra_model": ra_model, "dec_model": dec_model, "epochs": self.table["epoch"]}
@@ -82,9 +82,9 @@ class PlanetRelAstromObs(AbstractObs):
     # ------------------------------------------------------------------
     def pointwise_ln_like(self, ctx: PlanetObservationContext):
         theta_obs = ctx.theta_obs
-        jitter = per_epoch(theta_obs.get("jitter", 0.0))
-        platescale = per_epoch(theta_obs.get("platescale", 1.0))
-        northangle = per_epoch(theta_obs.get("northangle", 0.0))
+        jitter = per_epoch(theta_obs.get("jitter", 0.0), ctx)
+        platescale = per_epoch(theta_obs.get("platescale", 1.0), ctx)
+        northangle = per_epoch(theta_obs.get("northangle", 0.0), ctx)
 
         sim = self.simulate(ctx)
         ra_model, dec_model = sim["ra_model"], sim["dec_model"]
@@ -122,6 +122,41 @@ class PlanetRelAstromObs(AbstractObs):
 
     def ln_like(self, ctx: PlanetObservationContext):
         return torch.sum(self.pointwise_ln_like(ctx), dim=-1)
+
+    # ------------------------------------------------------------------
+    def generate_from_params(self, ctx, rng, add_noise=False):
+        """A copy whose positions are the model's at one parameter set
+        (`ctx` of a single draw), with noise of sigma (and jitter) if asked
+        (`relative-astrometry.jl:256-319`)."""
+        sim = self.simulate(ctx)
+        ra_model = sim["ra_model"].detach().cpu().numpy().astype(np.float64)
+        dec_model = sim["dec_model"].detach().cpu().numpy().astype(np.float64)
+        theta_obs = ctx.theta_obs
+        platescale = float(theta_obs.get("platescale", 1.0))
+        northangle = float(theta_obs.get("northangle", 0.0))
+        jitter = float(theta_obs.get("jitter", 0.0))
+
+        table = {k: np.array(v) for k, v in self.table.items()}
+        sep = np.hypot(ra_model, dec_model) / platescale
+        pa = np.arctan2(ra_model, dec_model) - northangle
+        if self.seppa:
+            if add_noise:
+                sep = sep + rng.standard_normal(sep.shape) * table["σ_sep"]
+                pa = pa + rng.standard_normal(pa.shape) * table["σ_pa"]
+            table["sep"], table["pa"] = sep, pa
+        else:
+            ra = sep * np.sin(pa)
+            dec = sep * np.cos(pa)
+            if add_noise:
+                ra = ra + rng.standard_normal(ra.shape) * np.hypot(table["σ_ra"], jitter)
+                dec = dec + rng.standard_normal(dec.shape) * np.hypot(table["σ_dec"], jitter)
+            table["ra"], table["dec"] = ra, dec
+        new = object.__new__(type(self))
+        AbstractObs.__init__(new, variables=None, name=self.name)
+        new.var_specs = self.var_specs
+        new.table = table
+        new.seppa = self.seppa
+        return new
 
 
 # Backwards-compat alias, as in the reference (`relative-astrometry.jl:98`)

@@ -40,6 +40,25 @@ def take_epochs(sol: OrbitSolution, start: int, n: int) -> OrbitSolution:
     return OrbitSolution(elem=sol.elem, **sliced)
 
 
-def per_epoch(x):
-    """A per-chain parameter, shaped to broadcast against the epoch axis."""
-    return x.unsqueeze(-1) if isinstance(x, torch.Tensor) else x
+def row_shape(ctx) -> tuple:
+    """The shape of a likelihood context's rows (chains, or chains times
+    discrete combinations): its `batch_shape`, which the model sets, or
+    where a caller left that out, its orbit solutions' without the epoch
+    axis."""
+    if ctx.batch_shape is not None:
+        return tuple(ctx.batch_shape)
+    for sol in ctx.solutions:
+        if sol is not None:
+            return tuple(sol.EA.shape[: sol.EA.ndim - sol.t.ndim])
+    return ()
+
+
+def per_epoch(x, ctx):
+    """A parameter shaped to broadcast against the epoch axis of `ctx`'s
+    likelihood. A per-row value (of the context's row shape, or 0-d) gets
+    a trailing axis; a per-epoch one (the row shape plus the epoch axis,
+    e.g. a jitter derived from one flag per epoch) and a number stay as
+    they are."""
+    if isinstance(x, torch.Tensor) and (x.ndim == 0 or tuple(x.shape) == row_shape(ctx)):
+        return x.unsqueeze(-1)
+    return x

@@ -3,8 +3,10 @@
 from .params import Params, hasproperty
 from .variables import (
     AbstractObs,
+    BlankLikelihood,
     Derived,
     DirectLL,
+    IIDVector,
     Planet,
     PlanetObservationContext,
     System,
@@ -16,6 +18,8 @@ from .variables import (
     normalizename,
 )
 from .logdensity import LogDensityModel
+from .initialization import starting_points_chain
+from .generate import generate_from_params
 from .parameterizations import (
     ofti_linear_solve,
     theta_at_epoch_to_tperi,
@@ -27,8 +31,10 @@ __all__ = [
     "Params",
     "hasproperty",
     "AbstractObs",
+    "BlankLikelihood",
     "Derived",
     "DirectLL",
+    "IIDVector",
     "Planet",
     "PlanetObservationContext",
     "System",
@@ -39,6 +45,8 @@ __all__ = [
     "likelihoodname",
     "normalizename",
     "LogDensityModel",
+    "starting_points_chain",
+    "generate_from_params",
     "theta_at_epoch_to_tperi",
     "theta_omegatheta_at_epoch_to_omega_tperi",
     "theta_sep_at_epoch_to_tperi_sma",

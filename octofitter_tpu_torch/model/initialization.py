@@ -169,3 +169,47 @@ def initialize(
     model.starting_points = model.tensor(draws)
     model.laplace_sigma = model.tensor(sigma)
     return theta_star_t
+
+
+def starting_points_chain(model, generator: torch.Generator | None = None):
+    """`model.starting_points` as a 1-chain `Chains` with every derived
+    quantity resolved: the init chain the reference's `initialize!`
+    returns (`initialization.jl:184-344`), to check data entry before
+    sampling. Marginalized discrete variables are drawn per point from
+    their conditional (generator: seeded 0 unless given)."""
+    from ..chains import Chains, flatten_params_batch
+    from ..distributions import categorical
+
+    if model.starting_points is None:
+        raise ValueError("run initialize() first")
+    draws = model.starting_points
+    n = draws.shape[0]
+    with torch.no_grad():
+        disc = None
+        if model.discrete_names:
+            if generator is None:
+                generator = torch.Generator(device=model.device).manual_seed(0)
+            disc = model._disc_combos[categorical(model.discrete_conditional_logits(draws),
+                                                  generator)]
+        nts = model.arr2nt(model.invlink(draws), disc)
+        lp = model.ln_post(draws).cpu().numpy().reshape(1, -1)
+
+    data = {}
+    for k, v in flatten_params_batch(nts).items():
+        if v.ndim == 0 or v.shape[0] != n:  # a constant: the same for every point
+            v = np.broadcast_to(v, (n,) + v.shape)
+        v2 = v.reshape(1, n, -1)
+        if v.ndim == 1:
+            data[k] = v2[..., 0]
+        else:
+            for j in range(v2.shape[-1]):
+                data[f"{k}_{j + 1}"] = v2[..., j]
+    return Chains(
+        data,
+        {"logpost": lp},
+        {
+            "sampler": "initialize",
+            "model_name": model.system.name,
+            "parameter_names": model.parameter_names,
+        },
+    )

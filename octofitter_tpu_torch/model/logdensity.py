@@ -16,6 +16,17 @@ gives each chain its own gradient because chains are independent.
 -inf gating is branch-free (`torch.where`). Every tensor the model makes
 carries the model's `device` and `dtype`.
 
+Discrete priors (`DiscreteUniform`, `Categorical`) are not part of theta.
+Where the product of their domains has at most `MAX_DISC_COMBOS`
+combinations, `ln_post` marginalizes them: every chain's likelihood is
+evaluated at every combination, over C x K rows, and summed by logsumexp
+with the combinations' prior weights; the rows are taken in chunks sized
+from free device memory, each recomputed in the backward pass
+(`torch.utils.checkpoint`), so that only the (C, K) log-likelihoods are
+kept. Above the cap the model is in the Gibbs mode: `ln_post_given_disc`
+conditions on each chain's discrete values and `gibbs_update_disc`
+redraws them (`samplers/gibbs.py`).
+
 `ln_post(theta_t, fused=...)` chooses how the orbits are solved
 (`orbits.orbitsolve`): the fused orbit-solve Function, first derivatives
 only (the default, so `ln_post_and_grad`, `prior_search` and the multistart
@@ -30,10 +41,23 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..distributions import categorical
 from ..orbits import orbitsolve
 from .params import Params
 from .variables import PlanetObservationContext, System, SystemObservationContext
+
+
+# The most combinations of discrete values that ln_post marginalizes; a
+# model with more is in the Gibbs mode.
+MAX_DISC_COMBOS = 4096
+# Bytes of device memory one row (one chain at one discrete combination)
+# of a marginalized value-and-gradient evaluation takes per epoch, in
+# float32: the fused forward's 14 fields, the likelihood's temporaries and
+# their gradients. chip_smoke.py's cap case reads 194 on an NVIDIA H100
+# 80GB HBM3 (relative astrometry, 12 epochs); rounded up.
+_BYTES_PER_ROW_EPOCH = 256
 
 
 def _stack_field(values, device, dtype):
@@ -99,13 +123,15 @@ class LogDensityModel:
                     obs.var_specs, ("planetobs", planet.name, obs.normalized_name)
                 )
 
-        if any(getattr(e[2], "discrete", False) for e in entries):
-            raise NotImplementedError(
-                "discrete priors (marginalization and the Gibbs mode) are "
-                "not ported to octofitter_tpu_torch yet"
-            )
-        self._prior_entries = entries
-        self.D = len(entries)
+        # Discrete priors are detected and kept out of theta: marginalized
+        # when their domains' product is small, else sampled by Gibbs
+        # updates (the reference switches to gradient-free sampling,
+        # `logdensitymodel.jl:38-41`)
+        cont = [e for e in entries if not getattr(e[2], "discrete", False)]
+        disc = [e for e in entries if getattr(e[2], "discrete", False)]
+        self._prior_entries = cont
+        self._discrete_entries = disc
+        self.D = len(cont)
         if self.D == 0:
             raise ValueError("Model has no free continuous (prior) parameters")
 
@@ -118,7 +144,28 @@ class LogDensityModel:
 
         # Flat parameter names using the chain naming contract
         # (`sampling.jl:551-635`): var, obs_var, planet_var, planet_obs_var.
-        self.parameter_names = [_flat_name(path, name) for path, name, _, _ in entries]
+        self.parameter_names = [_flat_name(path, name) for path, name, _, _ in cont]
+        self.discrete_names = [_flat_name(path, name) for path, name, _, _ in disc]
+
+        self.discrete_mode = None
+        self._disc_combos = None  # (K, n_disc) in the marginalized mode
+        self._disc_logw = None    # (K,) their log prior weights
+        self._disc_domains = None  # one numpy array per discrete variable
+        if disc:
+            self._disc_domains = [np.asarray(e[2].domain(), float) for e in disc]
+            K = int(np.prod([len(d) for d in self._disc_domains]))
+            if K > MAX_DISC_COMBOS:
+                # too many combinations to marginalize: ln_post conditions
+                # on the first domain values; sample with
+                # octofit(sampler="gibbs") (Gibbs-within-HMC)
+                self.discrete_mode = "gibbs"
+            else:
+                self.discrete_mode = "marginalize"
+                grids = np.meshgrid(*self._disc_domains, indexing="ij")
+                combos = torch.as_tensor(np.stack([g.reshape(-1) for g in grids], axis=-1))
+                logw = sum(e[2].logpmf(combos[:, j]) for j, e in enumerate(disc))
+                self._disc_combos = self.tensor(combos)
+                self._disc_logw = self.tensor(logw)
 
         # ------------------------------------------------------------------
         # 2. Epoch gathering with per-obs start indices (`system.jl:35-54`):
@@ -184,49 +231,203 @@ class LogDensityModel:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     def ln_post(self, theta_t, *, fused=True):
-        """Log posterior in unconstrained space: (..., D) -> (...).
+        """Log posterior in unconstrained space: (..., D) -> (...),
+        discrete variables marginalized (or, in the Gibbs mode, at the
+        first value of each one's domain).
 
         fused: solve the orbits with the fused Function (`orbitsolve`),
         which gives first derivatives only; `fused=False` for a second
         derivative or a `torch.func` transform."""
         theta_t = self.tensor(theta_t)
+        if self.discrete_mode == "gibbs":
+            disc0 = self.tensor([d[0] for d in self._disc_domains])
+            return self.ln_post_given_disc(theta_t, disc0.expand(theta_t.shape[:-1] + disc0.shape),
+                                           fused=fused)
         finite_in = torch.isfinite(theta_t).all(dim=-1)
         theta = self.invlink(theta_t)
         lp = self.ln_prior(theta) + self._ln_abs_det_jacobian(theta_t)
-        ll = self.ln_like_nt(self.arr2nt(theta), fused=fused)
+        if self.discrete_mode == "marginalize":
+            ll = torch.logsumexp(self._disc_logw + self._combo_lls(theta, fused=fused), dim=-1)
+        else:
+            ll = self.ln_like_nt(self.arr2nt(theta), fused=fused)
         lpost = lp + ll
         return torch.where(finite_in & torch.isfinite(lpost), lpost, -torch.inf)
+
+    def _value_and_grad(self, fn, theta_t):
+        theta_t = self.tensor(theta_t).detach().requires_grad_(True)
+        with torch.enable_grad():
+            lp = fn(theta_t)
+            (g,) = torch.autograd.grad(lp.sum(), theta_t)
+        return lp.detach(), g
 
     def ln_post_and_grad(self, theta_t):
         """(ln_post(theta_t), its gradient); a leading chain axis gives
         each chain its own gradient. Solves the orbits with the fused
         Function."""
-        theta_t = self.tensor(theta_t).detach().requires_grad_(True)
-        with torch.enable_grad():
-            lp = self.ln_post(theta_t)
-            (g,) = torch.autograd.grad(lp.sum(), theta_t)
-        return lp.detach(), g
+        return self._value_and_grad(self.ln_post, theta_t)
+
+    def ln_post_given_disc(self, theta_t, disc, *, fused=True):
+        """Log posterior conditional on the discrete values `disc`:
+        theta_t (..., D) and disc (..., n_disc) -> (...)."""
+        theta_t = self.tensor(theta_t)
+        disc = self.tensor(disc)
+        finite_in = torch.isfinite(theta_t).all(dim=-1)
+        theta = self.invlink(theta_t)
+        lp = self.ln_prior(theta) + self._ln_abs_det_jacobian(theta_t) + self.disc_logpmf(disc)
+        lpost = lp + self.ln_like_nt(self.arr2nt(theta, disc), fused=fused)
+        return torch.where(finite_in & torch.isfinite(lpost), lpost, -torch.inf)
+
+    def ln_post_given_disc_and_grad(self, theta_t, disc):
+        """(ln_post_given_disc(theta_t, disc), its gradient in theta_t)."""
+        return self._value_and_grad(lambda th: self.ln_post_given_disc(th, disc), theta_t)
+
+    # -- discrete variables ------------------------------------------------
+    def _rows_ll(self, theta, disc, fused=True):
+        """Log-likelihood of every row pair: theta (C, D) natural-space
+        points and disc (k, n_disc) discrete values -> (C, k), over C k rows
+        (theta repeated by expand + reshape, whose backward is a sum, not
+        an index scatter). NaN becomes -inf."""
+        C, k = theta.shape[0], disc.shape[0]
+        rows = theta[:, None, :].expand(C, k, self.D).reshape(C * k, self.D)
+        disc_rows = disc[None].expand((C,) + disc.shape).reshape(C * k, disc.shape[-1])
+        ll = self.ln_like_nt(self.arr2nt(rows, disc_rows), fused=fused)
+        ll = torch.broadcast_to(self.tensor(ll), (C * k,)).reshape(C, k)
+        return torch.where(torch.isnan(ll), -torch.inf, ll)
+
+    def _combo_chunk(self, n_theta: int) -> int:
+        """How many discrete combinations one pass takes for n_theta
+        points: as many rows as fit in a quarter of the free device memory
+        at `_BYTES_PER_ROW_EPOCH` (twice that in float64; on the CPU, in
+        4 GiB)."""
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+        else:
+            free = 16 * 2**30
+        per_row = _BYTES_PER_ROW_EPOCH * max(self.n_epochs, 1) * (self.dtype.itemsize // 4)
+        return max(1, int(free // 4 // per_row) // max(n_theta, 1))
+
+    def _combo_lls(self, theta, *, fused=True):
+        """The log-likelihood of every discrete combination at natural-space
+        theta (..., D): (..., K), NaN as -inf. The combinations go in
+        chunks of `_combo_chunk`; with more than one chunk and a gradient
+        to take, each chunk is recomputed in the backward pass
+        (`torch.utils.checkpoint`) rather than kept. `fused=False` (the
+        Hessian's `torch.func` path, which checkpointing does not compose
+        with) takes all K at once."""
+        batch = theta.shape[:-1]
+        flat = theta.reshape(-1, self.D)
+        K = self._disc_combos.shape[0]
+        chunk = self._combo_chunk(flat.shape[0]) if fused else K
+        if chunk >= K:
+            lls = self._rows_ll(flat, self._disc_combos, fused)
+        else:
+            keep_graph = torch.is_grad_enabled() and flat.requires_grad
+            parts = []
+            for k0 in range(0, K, chunk):
+                combos = self._disc_combos[k0: k0 + chunk]
+                if keep_graph:
+                    parts.append(checkpoint(self._rows_ll, flat, combos, use_reentrant=False,
+                                            preserve_rng_state=False))
+                else:
+                    parts.append(self._rows_ll(flat, combos))
+            lls = torch.cat(parts, dim=-1)
+        return lls.reshape(batch + (K,))
+
+    def discrete_conditional_logits(self, theta_t):
+        """Unnormalized log P(discrete combination | theta_t), the prior
+        weight plus the log-likelihood of each: (..., D) -> (..., K). Draw
+        from it (`distributions.categorical`) to recover the discrete
+        variables per posterior draw."""
+        if self._disc_combos is None:
+            raise ValueError("model has no discrete variables")
+        return self._disc_logw + self._combo_lls(self.invlink(self.tensor(theta_t)))
+
+    def disc_logpmf(self, disc):
+        """Sum of the discrete priors' log pmf at the values disc
+        (..., n_disc) -> (...)."""
+        if not self._discrete_entries:
+            return self.tensor(0.0)
+        disc = self.tensor(disc)
+        return sum(e[2].logpmf(disc[..., j]) for j, e in enumerate(self._discrete_entries))
+
+    def sample_disc_priors(self, generator: torch.Generator, n: int | None = None):
+        """IID draws of the discrete variables from their priors, shape
+        (n_disc,) or (n, n_disc)."""
+        shape = () if n is None else (n,)
+        return self.tensor(torch.stack(
+            [e[2].sample(generator, shape, self.dtype) for e in self._discrete_entries], dim=-1))
+
+    def gibbs_update_disc(self, theta_t, disc, generator: torch.Generator | None = None,
+                          noise=None):
+        """One systematic-scan Gibbs sweep over the discrete variables of
+        every chain given its continuous state: theta_t (C, D), disc
+        (C, n_disc) (or (D,) and (n_disc,)). Variable j is redrawn from its
+        full conditional over its own domain only, so a sweep costs the
+        SUM of the domain sizes: one likelihood evaluation, without
+        gradient, over C |dom_j| rows per variable. The draw is the
+        Gumbel-max argmax(logits + g), g from `generator` unless noise[j]
+        (C, |dom_j|) gives them. Returns the new disc."""
+        theta = self.invlink(self.tensor(theta_t))
+        disc = self.tensor(disc).clone()
+        single = theta.ndim == 1
+        if single:
+            theta, disc = theta[None], disc[None]
+        C = theta.shape[0]
+        for j, e in enumerate(self._discrete_entries):
+            dom = self.tensor(self._disc_domains[j])
+            m = len(dom)
+            rows = theta[:, None, :].expand(C, m, self.D).reshape(C * m, self.D)
+            disc_rows = disc[:, None, :].repeat(1, m, 1)
+            disc_rows[:, :, j] = dom
+            with torch.no_grad():
+                ll = self.ln_like_nt(self.arr2nt(rows, disc_rows.reshape(C * m, -1)))
+            ll = torch.broadcast_to(self.tensor(ll), (C * m,)).reshape(C, m)
+            logits = e[2].logpmf(dom) + ll
+            logits = torch.where(torch.isnan(logits), -torch.inf, logits)
+            i = categorical(logits, generator, None if noise is None else noise[j])
+            disc[:, j] = dom[i]
+        return disc[0] if single else disc
+
+    def drawfrompriors(self, generator: torch.Generator):
+        """Structured prior draw (`drawfrompriors`, `variables.jl:1507`),
+        the discrete variables drawn from their prior weights."""
+        if self._disc_combos is not None:
+            i = categorical(self._disc_logw, generator)
+            return self.arr2nt(self.sample_priors(generator), self._disc_combos[i])
+        return self.arr2nt(self.sample_priors(generator))
 
     # ----------------------------------------------------------------------
     def _make_arr2nt(self):
         system = self.system
+        n_disc = len(self._discrete_entries)
 
         def eval_specs(specs, take, outer_scopes):
             d = {}
             for s in specs:
                 if s.kind == "prior":
-                    d[s.name] = take()
+                    d[s.name] = take(s)
                 elif s.kind == "constant":
                     d[s.name] = self.tensor(s.value)
                 else:
                     d[s.name] = s.value(*outer_scopes, Params(d))
             return d
 
-        def arr2nt(theta):
+        def arr2nt(theta, disc=None):
             theta = self.tensor(theta)
+            if n_disc and disc is None:
+                raise ValueError(
+                    "this model has discrete variables "
+                    f"({self.discrete_names}); arr2nt needs their values "
+                    "as a second argument"
+                )
             it = iter(range(self.D))
+            it_d = iter(range(n_disc))
+            if n_disc:
+                disc = self.tensor(disc)
 
-            def take():
+            def take(spec):
+                if getattr(spec.value, "discrete", False):
+                    return disc[..., next(it_d)]
                 return theta[..., next(it)]
 
             sys_d = eval_specs(system.var_specs, take, ())
@@ -372,12 +573,26 @@ class LogDensityModel:
             orbits.append(planet.basis.from_params(**kw))
         return tuple(orbits)
 
+    def _row_shape(self, theta_nt) -> tuple:
+        """The rows' shape of a structured parameter set: that of its first
+        prior, which arr2nt took from theta[..., 0]."""
+        path, name = self._prior_entries[0][:2]
+        scope = theta_nt
+        if path[0] == "sysobs":
+            scope = theta_nt.observations[path[1]]
+        elif path[0] == "planet":
+            scope = theta_nt.planets[path[1]]
+        elif path[0] == "planetobs":
+            scope = theta_nt.planets[path[1]].observations[path[2]]
+        return tuple(scope[name].shape)
+
     def _make_ln_like(self):
         system = self.system
         epochs = self._epochs_t
         start_map = self._epoch_start
 
         def ln_like_nt(theta_nt, *, fused=True):
+            rows = self._row_shape(theta_nt)
             orbits = self.construct_orbits(theta_nt)
             if len(epochs) and len(orbits):
                 sols = tuple(orbitsolve(o, epochs, fused=fused) for o in orbits)
@@ -400,6 +615,7 @@ class LogDensityModel:
                         solutions=sols,
                         i_planet=i_planet,
                         epoch_start=start_map.get(id(obs), 0),
+                        batch_shape=rows,
                     )
                     ll = ll + obs.ln_like(ctx)
             # system-attached observations (`system.jl:180-204`)
@@ -411,6 +627,7 @@ class LogDensityModel:
                     orbits=orbits,
                     solutions=sols,
                     epoch_start=start_map.get(id(obs), 0),
+                    batch_shape=rows,
                 )
                 ll = ll + obs.ln_like(ctx)
             return ll
@@ -456,6 +673,17 @@ class LogDensityModel:
             pts = pts[None, :]
         self.starting_points = self.link(pts)
         return self
+
+    def get_starting_point(self, generator: torch.Generator | None = None):
+        """One starting point (unconstrained, (D,)), initializing first if
+        needed (`get_starting_point!!`, `initialization.jl:85-93`): the
+        first, or with a generator a random one."""
+        if self.starting_points is None:
+            self.initialize(generator)
+        pts = self.starting_points
+        i = 0 if generator is None else int(
+            torch.randint(len(pts), (), generator=generator, device=generator.device))
+        return pts[i]
 
     # ----------------------------------------------------------------------
     def prior_search(self, generator: torch.Generator, n_samples: int = 10_000,

@@ -1,7 +1,8 @@
 """Model specification: variables, planets, systems, observation interface.
 
 PyTorch port of `octofitter_tpu/model/variables.py` (the part the
-ported fits use, with the `UserLikelihood` and `DirectLL` user terms). A ``variables=dict(...)`` holds
+ported fits use, with the `UserLikelihood` and `DirectLL` user terms and
+`BlankLikelihood`). A ``variables=dict(...)`` holds
 
   - a Distribution value: a *prior* (`x ~ Dist`),
   - a number/array: a constant,
@@ -9,7 +10,9 @@ ported fits use, with the `UserLikelihood` and `DirectLL` user terms). A ``varia
     signature selects scope: system-level ``f(sys)``, planet-level
     ``f(sys, pl)``, observation-level ``f(sys, obs)`` / ``f(sys, pl, obs)``,
   - ``UniformCircular()``: two Normal(0,1) variables, an ``atan2``
-    derived angle and a ``UnitLengthPrior`` pseudo-observation.
+    derived angle and a ``UnitLengthPrior`` pseudo-observation,
+  - ``IIDVector(dist, n)``: n iid priors ``name_1 .. name_n`` and a
+    derived ``name`` stacking them on a last axis.
 
 Derived callables receive tensors whose leading axis is the chain axis,
 so they must be elementwise (the functions this package exports are).
@@ -54,6 +57,19 @@ class UniformCircular:
         self.domain = float(domain)
 
 
+class IIDVector:
+    """n iid copies of a scalar prior exposed as ONE stacked variable (the
+    reference's `x ~ MvNormal(zeros(n), I)` pattern).
+
+    Expands to scalar priors ``name_1 .. name_n`` (so the grouped prior
+    machinery vectorizes them) plus a derived ``name`` of shape (..., n):
+    the chain axis first, the n copies last."""
+
+    def __init__(self, dist: "Distribution", n: int):
+        self.dist = dist
+        self.n = int(n)
+
+
 @dataclasses.dataclass
 class _VarSpec:
     """One entry of a variables block, in declaration order."""
@@ -91,6 +107,20 @@ def parse_variables(variables: dict | None):
 
             specs.append(_VarSpec(name, "derived", _mk()))
             extra_obs.append(UnitLengthPrior(nx, ny))
+        elif isinstance(v, IIDVector):
+            comp_names = [f"{name}_{i + 1}" for i in range(v.n)]
+            for cn in comp_names:
+                specs.append(_VarSpec(cn, "prior", v.dist))
+
+            def _mk_stack(comp_names=tuple(comp_names)):
+                def fn(*scopes):
+                    ns = scopes[-1]
+                    return torch.stack(torch.broadcast_tensors(*(ns[cn] for cn in comp_names)),
+                                       dim=-1)
+
+                return fn
+
+            specs.append(_VarSpec(name, "derived", _mk_stack()))
         elif isinstance(v, Distribution):
             specs.append(_VarSpec(name, "prior", v))
         elif isinstance(v, Derived):
@@ -116,6 +146,7 @@ class SystemObservationContext:
     orbits: tuple
     solutions: tuple       # per-planet OrbitSolution over ALL epochs
     epoch_start: int       # this obs's start index into the epoch axis
+    batch_shape: tuple | None = None  # the rows' shape (`likelihoods.utils.row_shape`)
 
 
 @dataclasses.dataclass
@@ -129,6 +160,7 @@ class PlanetObservationContext:
     solutions: tuple
     i_planet: int
     epoch_start: int
+    batch_shape: tuple | None = None
 
 
 class AbstractObs:
@@ -138,6 +170,7 @@ class AbstractObs:
       - ``ln_like(ctx)`` -> log-likelihood, one value per chain
       - ``epochs`` property -> np.ndarray of MJD epochs or None
       - ``simulate(ctx)`` -> model-predicted observables (dict)
+      - ``generate_from_params(ctx, rng, add_noise)`` -> new obs object
     """
 
     name: str = ""
@@ -186,6 +219,9 @@ class AbstractObs:
 
     def simulate(self, ctx):
         raise NotImplementedError
+
+    def generate_from_params(self, ctx, rng, add_noise=False):
+        return self
 
     def __repr__(self):
         n = 0 if self.epochs is None else len(self.epochs)
@@ -262,6 +298,18 @@ class UserLikelihood(AbstractObs):
         else:
             theta = ctx.theta_system.merge(ctx.theta_obs)
         return self.dist.logpdf(theta[self.var])
+
+
+class BlankLikelihood(AbstractObs):
+    """Holds variables without contributing likelihood
+    (`variables.jl:430-451`), used e.g. by prior-only models."""
+
+    @property
+    def is_prior(self):
+        return True
+
+    def ln_like(self, ctx):
+        return 0.0
 
 
 class DirectLL(AbstractObs):

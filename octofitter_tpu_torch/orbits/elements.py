@@ -39,15 +39,33 @@ from .kepler import kepler_solver
 from .kernels.orbit_solve import orbit_solve_backward_cuda, orbit_solve_forward_cuda
 
 
-def _tensor(x):
-    # numbers (and numpy values) become float64, tensors keep their type
+def _tensor(x, device=None):
+    # numbers (and numpy values) become float64 on `device`, tensors keep
+    # their type and device
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(x, dtype=torch.float64)
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
 
 
-def _pick(kw, *names):
-    return {k: _tensor(kw[k]) for k in names}
+def _elements_device(kw, device):
+    """Where `from_params` puts elements given as numbers: the device of
+    the first value that is a tensor, or else `device`, which must then
+    exist (the GPU by default: a caller who wants the CPU says so)."""
+    for v in kw.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"orbit elements were asked for device {device!s}, but no CUDA device is "
+            "available; pass device=\"cpu\""
+        )
+    return device
+
+
+def _pick(kw, device, *names):
+    device = _elements_device(kw, device)
+    return {k: _tensor(kw[k], device) for k in names}
 
 
 # --------------------------------------------------------------------------
@@ -67,9 +85,9 @@ class KepOrbit:
     M: torch.Tensor      # total mass [Msun]
 
     @classmethod
-    def from_params(cls, **kw):
-        kw = _resolve_aliases(kw)
-        return cls(**_pick(kw, "a", "e", "i", "omega", "Omega", "tp", "M"))
+    def from_params(cls, *, device="cuda", **kw):
+        kw = _resolve_aliases(kw, device)
+        return cls(**_pick(kw, device, "a", "e", "i", "omega", "Omega", "tp", "M"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +104,9 @@ class VisualOrbit:
     plx: torch.Tensor    # parallax [mas]
 
     @classmethod
-    def from_params(cls, **kw):
-        kw = _resolve_aliases(kw)
-        return cls(**_pick(kw, "a", "e", "i", "omega", "Omega", "tp", "M", "plx"))
+    def from_params(cls, *, device="cuda", **kw):
+        kw = _resolve_aliases(kw, device)
+        return cls(**_pick(kw, device, "a", "e", "i", "omega", "Omega", "tp", "M", "plx"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,9 +123,9 @@ class ThieleInnesOrbit:
     plx: torch.Tensor
 
     @classmethod
-    def from_params(cls, **kw):
-        kw = _resolve_aliases(kw)
-        return cls(**_pick(kw, "e", "A", "B", "F", "G", "tp", "M", "plx"))
+    def from_params(cls, *, device="cuda", **kw):
+        kw = _resolve_aliases(kw, device)
+        return cls(**_pick(kw, device, "e", "A", "B", "F", "G", "tp", "M", "plx"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,12 +139,12 @@ class RadialVelocityOrbit:
     M: torch.Tensor
 
     @classmethod
-    def from_params(cls, **kw):
-        kw = _resolve_aliases(kw)
-        return cls(**_pick(kw, "a", "e", "omega", "tp", "M"))
+    def from_params(cls, *, device="cuda", **kw):
+        kw = _resolve_aliases(kw, device)
+        return cls(**_pick(kw, device, "a", "e", "omega", "tp", "M"))
 
 
-def _resolve_aliases(kw):
+def _resolve_aliases(kw, device):
     """Accept unicode names (as used in reference docs) and P->a."""
     kw = dict(kw)
     alias = {"ω": "omega", "Ω": "Omega", "ϖ": "plx", "τ": "tau"}
@@ -135,8 +153,9 @@ def _resolve_aliases(kw):
             kw[new] = kw.pop(old)
     if "a" not in kw and "P" in kw and "M" in kw:
         # P in days -> a via Kepler's third law
-        P_kepler_years = _tensor(kw["P"]) / KEPLER_YEAR_DAYS
-        kw["a"] = (_tensor(kw["M"]) * P_kepler_years**2) ** (1.0 / 3.0)
+        device = _elements_device(kw, device)
+        P_kepler_years = _tensor(kw["P"], device) / KEPLER_YEAR_DAYS
+        kw["a"] = (_tensor(kw["M"], device) * P_kepler_years**2) ** (1.0 / 3.0)
     return kw
 
 
@@ -553,7 +572,7 @@ def orbitsolve(elem, t, *, fused=True):
 def _reflex_factor(sol, mass):
     """-(m_companion / M_total): host-reflex weighting, per epoch."""
     M = totalmass(sol.elem)
-    return _per_epoch(-_tensor(mass) / M, sol.t)
+    return _per_epoch(-_tensor(mass, M.device) / M, sol.t)
 
 
 def raoff(sol, mass=None):

@@ -99,22 +99,32 @@ class _KeplerSolve(torch.autograd.Function):
         return _KeplerSolve.apply(M, e), 0
 
 
-def _as_tensor_like(x, ref):
+def _as_tensors(M, e, device):
+    """(M, e) as tensors broadcast to one shape: numbers take the dtype and
+    device of the other argument where it is a tensor, else float64 on
+    `device`, which must then exist (the GPU by default)."""
+    ref = M if isinstance(M, torch.Tensor) else e
     if isinstance(ref, torch.Tensor):
-        return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
-    return torch.as_tensor(x, dtype=torch.float64)
+        dtype, device = ref.dtype, ref.device
+    else:
+        dtype, device = torch.float64, torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"kepler_solver was asked for device {device!s}, but no CUDA device is "
+                "available; pass device=\"cpu\""
+            )
+    M = torch.as_tensor(M, dtype=dtype, device=device)
+    e = torch.as_tensor(e, dtype=M.dtype, device=M.device)
+    return torch.broadcast_tensors(M, e)
 
 
-def kepler_solver(M, e):
+def kepler_solver(M, e, *, device="cuda"):
     """Solve E - e*sin(E) = M for eccentric anomaly E, elliptic case e<1.
 
     M and e broadcast; M may be any real value (reduced to [-pi, pi)
-    internally) and E is continuous with M (E - M is periodic)."""
-    ref = M if isinstance(M, torch.Tensor) else e
-    M = _as_tensor_like(M, ref)
-    e = _as_tensor_like(e, M)
-    M, e = torch.broadcast_tensors(M, e)
-    return _KeplerSolve.apply(M, e)
+    internally) and E is continuous with M (E - M is periodic). Where
+    neither is a tensor, the solve runs on `device`."""
+    return _KeplerSolve.apply(*_as_tensors(M, e, device))
 
 
 def _hyperbolic_newton(M, e):
@@ -146,10 +156,7 @@ class _KeplerSolveHyperbolic(torch.autograd.Function):
         return gM, -gM * torch.sinh(H)
 
 
-def kepler_solver_hyperbolic(M, e):
-    """Solve e*sinh(H) - H = M for hyperbolic anomaly H (e > 1)."""
-    ref = M if isinstance(M, torch.Tensor) else e
-    M = _as_tensor_like(M, ref)
-    e = _as_tensor_like(e, M)
-    M, e = torch.broadcast_tensors(M, e)
-    return _KeplerSolveHyperbolic.apply(M, e)
+def kepler_solver_hyperbolic(M, e, *, device="cuda"):
+    """Solve e*sinh(H) - H = M for hyperbolic anomaly H (e > 1); where
+    neither argument is a tensor, on `device`."""
+    return _KeplerSolveHyperbolic.apply(*_as_tensors(M, e, device))

@@ -65,7 +65,7 @@ class _BaseRVObs(AbstractObs):
         """The instrument's offset (if the model has one) plus its trend,
         shaped to broadcast against (C, n)."""
         theta_obs = ctx.theta_obs
-        rv = per_epoch(theta_obs.get("offset", 0.0)) if offset else 0.0
+        rv = per_epoch(theta_obs.get("offset", 0.0), ctx) if offset else 0.0
         if self.trend_function is not None:
             rv = rv + self.trend_function(theta_obs, self.column("epoch", _like(ctx)))
         return rv
@@ -88,7 +88,7 @@ class _BaseRVObs(AbstractObs):
         """rv - model and sigma^2 + jitter^2, each broadcast to (C, n)."""
         rv_model = self.simulate(ctx)["rv_model"]
         col = lambda name: self.column(name, _like(ctx))  # noqa: E731
-        jitter = per_epoch(ctx.theta_obs.get("jitter", 0.0))
+        jitter = per_epoch(ctx.theta_obs.get("jitter", 0.0), ctx)
         resid = col("rv") - rv_model
         return resid, col("σ_rv") ** 2 + jitter**2
 
@@ -204,7 +204,7 @@ class PlanetRelativeRVObs(_BaseRVObs):
             if not hasproperty(theta_p, "mass") or j == ctx.i_planet:
                 continue
             sol_o = take_epochs(ctx.solutions[j], ctx.epoch_start, n)
-            w = per_epoch((semimajoraxis(ctx.orbits[j]) < a_this).to(rv.dtype))
+            w = per_epoch((semimajoraxis(ctx.orbits[j]) < a_this).to(rv.dtype), ctx)
             rv = rv + w * radvel(sol_o, theta_p.mass * MJUP2MSOL)
         return {"rv_model": rv, "epochs": self.table["epoch"]}
 

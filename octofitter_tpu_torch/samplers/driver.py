@@ -2,9 +2,11 @@
 
 PyTorch port of `octofitter_tpu/samplers/driver.py`: `octofit`
 initializes the model (prior search -> multistart Adam -> L-BFGS ->
-Laplace) unless it has starting points, runs cross-chain ChEES-HMC, NUTS
-or jittered HMC over all chains at once, prints a sampling report, and
-repackages the draws (with all derived quantities) into a named `Chains`.
+Laplace) unless it has starting points, runs cross-chain ChEES-HMC, NUTS,
+jittered HMC or, on a model with a large discrete domain, Gibbs-within-HMC
+over all chains at once, prints a sampling report, and repackages the
+draws (with all derived quantities and the discrete variables) into a
+named `Chains`.
 
 `octofit_rejection` mirrors `sampling.jl:168-279`: IID prior batches drawn
 and scored on the model's device, each draw accepted with probability
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..chains import Chains, flatten_params_batch
+from ..distributions import categorical
 from ..model.logdensity import LogDensityModel
 from .chees import run_chees
 from .nuts import run_nuts
@@ -28,11 +31,20 @@ from .nuts import run_nuts
 def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
                sampler="chees"):
     """Transformed draws -> named Chains with derived quantities (the
-    reference's invlink -> arr2nt -> result2mcmcchain, `sampling.jl:465-527`)."""
+    reference's invlink -> arr2nt -> result2mcmcchain, `sampling.jl:465-527`).
+    The discrete variables come from the sampler (Gibbs mode), or are
+    recovered per draw from their conditional given the continuous state,
+    drawn with a generator seeded 0 (marginalized)."""
     n_chains, n_draws, D = samples_t.shape
     flat_t = samples_t.reshape(-1, D)
+    disc = None
     with torch.no_grad():
-        nts = model.arr2nt(model.invlink(flat_t))
+        if model.discrete_names and model.discrete_mode == "gibbs":
+            disc = info["disc_samples"].reshape(flat_t.shape[0], -1)
+        elif model.discrete_names:
+            gen = torch.Generator(device=model.device).manual_seed(0)
+            disc = model._disc_combos[categorical(model.discrete_conditional_logits(flat_t), gen)]
+        nts = model.arr2nt(model.invlink(flat_t), disc)
         lprior = model.ln_prior_transformed(flat_t)
     data = {}
     n = flat_t.shape[0]
@@ -63,7 +75,8 @@ def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
         "sigma": info["sigma"].cpu().numpy(),
         "sampling_time_s": t_sampling,
         "n_grad_evals": info["n_grad_evals"],
-        "transition_evals": info.get("transition_evals"),  # NUTS and HMC
+        "transition_evals": info.get("transition_evals"),  # NUTS, HMC and Gibbs
+        "n_sweep_evals": info.get("n_sweep_evals"),  # Gibbs
         "parameter_names": model.parameter_names,
         "device": str(model.device),
     }
@@ -110,9 +123,11 @@ def octofit(
     """Sample the posterior with a vectorized transition (ChEES default).
 
     sampler: "chees" (cross-chain ChEES-HMC), "nuts" (per-chain
-    window-adapted multinomial NUTS, the reference's transition) or "hmc"
-    (jittered-trajectory HMC with NUTS's adaptation); "gibbs" (the
-    discrete priors' Gibbs-within-HMC) is not ported and raises.
+    window-adapted multinomial NUTS, the reference's transition), "hmc"
+    (jittered-trajectory HMC with NUTS's adaptation) or "gibbs"
+    (Gibbs-within-HMC over discrete priors, `samplers/gibbs.py`), which a
+    model in the Gibbs mode (a discrete domain too large to marginalize)
+    always takes.
     Defaults mirror the reference (`sampling.jl:317-325`) and resolve
     from the typed config (OCTOFITTER_* env overrides; config.py).
     generator: a `torch.Generator` on the model's device (default: seed 0).
@@ -132,14 +147,21 @@ def octofit(
     max_depth = cfg.max_depth if max_depth is None else max_depth
     verbosity = cfg.verbosity if verbosity is None else verbosity
     sampler = cfg.sampler if sampler is None else sampler
-    if sampler == "gibbs":
-        raise NotImplementedError(
-            "sampler='gibbs' (Gibbs-within-HMC over discrete priors) is not "
-            "ported to octofitter_tpu_torch yet; it comes with the discrete "
-            "priors in the next slice (ROADMAP Queue 1 item 12)"
+    if model.discrete_mode == "gibbs" and sampler != "gibbs":
+        sampler = "gibbs"
+        if verbosity >= 1:
+            print("octofit: large discrete domain detected -> Gibbs-within-HMC sampler")
+    if sampler not in ("chees", "nuts", "hmc", "gibbs"):
+        raise ValueError(f"unknown sampler {sampler!r}; use 'chees', 'nuts', 'hmc' or 'gibbs'")
+    if sampler == "gibbs" and not model.discrete_names:
+        raise ValueError("sampler='gibbs' samples discrete priors; this model has no discrete "
+                         "priors")
+    if sampler == "gibbs" and (not drop_warmup or step_size is not None):
+        raise ValueError(
+            "drop_warmup=False / step_size= are not supported by the "
+            "Gibbs-within-HMC sampler (used for large discrete "
+            "domains); use the default adaptation instead"
         )
-    if sampler not in ("chees", "nuts", "hmc"):
-        raise ValueError(f"unknown sampler {sampler!r}; use 'chees', 'nuts' or 'hmc'")
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
 
@@ -162,7 +184,20 @@ def octofit(
             initial_sigma = _initial_sigma_from_points(pts.cpu().numpy(), metric)
 
     t0 = time.perf_counter()
-    if sampler == "chees":
+    if sampler == "gibbs":
+        from .gibbs import run_gibbs
+
+        samples, lps, stats, info = run_gibbs(
+            model,
+            theta0,
+            generator,
+            n_warmup=adaptation,
+            n_samples=iterations,
+            target_accept=target_accept,
+            metric=metric,
+            initial_sigma=initial_sigma,
+        )
+    elif sampler == "chees":
         samples, lps, stats, info = run_chees(
             model.ln_post_and_grad,
             theta0,

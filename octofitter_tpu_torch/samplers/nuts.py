@@ -484,6 +484,21 @@ def build_warmup_schedule(n_warmup: int):
 # Warmup + sampling of a batch of chains
 # --------------------------------------------------------------------------
 
+def initial_chain_metric(initial_sigma, C, D, dense: bool, dtype, device) -> Metric:
+    """Every chain's starting metric: `initial_sigma` ((D,) or (D, D),
+    turned into the kind `dense` asks for), or the identity."""
+    if initial_sigma is None:
+        sigma0 = (torch.eye(D, dtype=dtype, device=device) if dense
+                  else torch.ones((D,), dtype=dtype, device=device))
+    else:
+        sigma0 = torch.as_tensor(initial_sigma, dtype=dtype, device=device)
+        if dense and sigma0.ndim == 1:
+            sigma0 = torch.diag(sigma0)
+        if not dense and sigma0.ndim == 2:
+            sigma0 = torch.diagonal(sigma0)
+    return chain_metric(sigma0.expand((C,) + sigma0.shape).contiguous())
+
+
 def _stack_draws(Thetas, lps, stats_list):
     """Per-step lists -> samples (C, S, D), lps (C, S), stats with (C, S)
     leaves (chains first)."""
@@ -558,16 +573,7 @@ def run_nuts(
     else:
         raise ValueError(f"unknown sampler {sampler!r}; run_nuts takes 'nuts' or 'hmc'")
 
-    if initial_sigma is None:
-        sigma0 = (torch.eye(D, dtype=dtype, device=device) if dense
-                  else torch.ones((D,), dtype=dtype, device=device))
-    else:
-        sigma0 = torch.as_tensor(initial_sigma, dtype=dtype, device=device)
-        if dense and sigma0.ndim == 1:
-            sigma0 = torch.diag(sigma0)
-        if not dense and sigma0.ndim == 2:
-            sigma0 = torch.diagonal(sigma0)
-    metric_c = chain_metric(sigma0.expand((C,) + sigma0.shape).contiguous())
+    metric_c = initial_chain_metric(initial_sigma, C, D, dense, dtype, device)
 
     lp, Grad = value_and_grad(Theta)
     n_grad_evals = 1

@@ -266,7 +266,9 @@ def octofit_pigeons(
     by Adam) or "hmc" (jittered-trajectory HMC with up to
     explorer_n_leapfrog steps). Each rung has its own step size and
     diagonal metric. `mesh=` is not ported and raises
-    NotImplementedError.
+    NotImplementedError, as does a model with discrete priors: the JAX
+    package's tempering evaluates the model without discrete values, so
+    it has no such path to port.
 
     Besides the JAX package's info keys, info holds "logevidence_se" (the
     standard error of the log-evidence that the spread of the estimates of
@@ -281,7 +283,13 @@ def octofit_pigeons(
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (a ladder sharded across devices) is not ported to "
-            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 18)"
+            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 9)"
+        )
+    if model.discrete_names:
+        raise NotImplementedError(
+            "octofit_pigeons on a model with discrete priors "
+            f"({model.discrete_names}) is not supported: parallel tempering "
+            "does not marginalize or Gibbs-sample discrete variables; use octofit"
         )
     if n_chains_variational == 1:
         # a single variational rung would be a recorded target rung

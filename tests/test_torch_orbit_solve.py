@@ -179,7 +179,8 @@ def test_broadcast_and_epoch_shapes():
     composed = ot.orbitsolve(ot.VisualOrbit(**kw), epochs, fused=False)
     assert fused.raoff_mas.shape == composed.raoff_mas.shape == (5, 3, 4)
     np.testing.assert_allclose(fused.raoff_mas.numpy(), composed.raoff_mas.numpy(), rtol=0, atol=1e-9)
-    one = ot.orbitsolve(ot.VisualOrbit.from_params(**{n: float(r[0]) for n, r in zip(ROWS, elems)}),
+    one = ot.orbitsolve(ot.VisualOrbit.from_params(**{n: float(r[0]) for n, r in zip(ROWS, elems)},
+                                                   device="cpu"),
                         EPOCHS, fused=True)
     assert one.raoff_mas.shape == (12,)
 
