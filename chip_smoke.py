@@ -8,11 +8,12 @@ non-zero:
 
 1. device: needs a CUDA device; prints its name and what
    `nvidia-smi --query-gpu=name,power.limit` reports;
-2. build: compiles both kernel libraries (`kepler.cu`, `orbit_solve.cu`
-   and the header `kepler.cuh` under `octofitter_tpu_torch/orbits/
-   kernels/csrc/`) with nvcc, one process each, started together, into
-   the git-ignored build directory; prints ptxas's register and spill
-   lines;
+2. build: compiles the three kernel libraries (`kepler.cu`,
+   `orbit_solve.cu` and the header `kepler.cuh` under
+   `octofitter_tpu_torch/orbits/kernels/csrc/`, and
+   `octofitter_tpu_torch/rv/csrc/celerite.cu`) with nvcc, one process
+   each, started together, into the git-ignored build directory; prints
+   ptxas's register and spill lines;
 3. Kepler kernel vs twin: the kernel against its plain PyTorch twin on
    the card, in float32 and float64, on 2^20 random (M, e) plus edge
    cases, then at the main path's (chains, 12) shape and at 2^23
@@ -29,9 +30,9 @@ non-zero:
 5. main path: the benchmark's headline model (`bench.py:build_model`:
    quick-start relative astrometry, 12 epochs, 2 mas noise, seed 0) in
    float32 on the GPU, checked against a float64 CPU model, then
-   `octofit` with initialization at 4096 chains, 700 adaptation steps
-   (as the bench) and 300 draws (the bench's 3000, cut to keep the
-   whole script inside its time limit); checks finite draws, max split-R-hat < 1.05
+   `octofit` with initialization at 4096 chains, 400 adaptation steps
+   and 200 draws (the bench's 700 and 3000, cut to keep the whole script
+   inside its time limit); checks finite draws, max split-R-hat < 1.05
    by the device diagnostics, the posterior median of b_a within 5 sd of
    the true 7.0, and that all three kernels were launched (the standalone
    Kepler kernel by the Laplace step, the fused pair on every gradient
@@ -57,8 +58,8 @@ non-zero:
    astrometry, HGCA with N_ave = 5, zero-point-marginalized RV; 70 epochs,
    D = 15), its data made from seed 0 with the port's orbitsolve on the
    CPU in float64, in float32 on the GPU, checked against a float64 CPU
-   model, then `octofit` as in 5 with the same gates at 400 adaptation
-   steps + 200 draws, the posterior
+   model, then `octofit` as in 5 with the same gates at 300 adaptation
+   steps + 150 draws, the posterior
    medians of b_mass and b_a within 5 sd of 12 Mjup and 9 AU, and the
    Kepler kernel held to its twin at the shapes this run launched it with;
 10. partial-arc parallel tempering (`bench.py:218-296`): the headline
@@ -112,7 +113,29 @@ non-zero:
    against the float64 CPU model, then forced into 8 chunks (each
    recomputed in the backward pass) and held against the one pass;
 17. the fused pair against its plain versions, and timed, in float32 at
-   the discrete paths' shapes. Every phase from 14 on prints its seconds.
+   the discrete paths' shapes;
+18. the RV-GP path (`examples/03_rv_gp.py`: a RadialVelocityOrbit planet in
+   80 absolute RVs with an SHOTerm Gaussian process, D = 11), its data made
+   from seed 0 with the port's orbitsolve on the CPU in float64: the
+   float32 GPU model checked against a float64 CPU model; one batched
+   value-and-gradient at 4096 chains through the celerite kernel pair
+   (`rv/csrc/celerite.cu`) and through the plain recursion
+   (`ln_post(..., fused=False)`), held to each other, with each path's
+   host and device time and device operations; the Laplace step (the
+   plain recursion under `torch.func.hessian`) timed, with its device
+   operations and launches; the pair against its plain
+   version in both precisions (float32 within 4 times the plain version's
+   own error against float64, float64 within 1e-10) at (4096, 80) with one
+   and two terms, (2^17, 80) and (8, 2048), with non-positive-definite
+   rows, each timed (plain, kernel, kernel, plain) beside the dense route
+   by library calls; the associative method against the pair at (8, 2048)
+   and a QuasiPeriodicKernel's dense `gp_loglike` at (4096, 80) against
+   float64 on the CPU; then `octofit` with initialization at 4096 chains,
+   ChEES, RVGP_ADAPTATION + RVGP_ITERATIONS, with the gates of 5, the
+   celerite pair and the standalone Kepler kernel launched on every
+   gradient evaluation, the medians of b_mass and b_a within 5 sd of 1.2
+   Mjup and 0.25 AU, and the Kepler kernel held to its twin at every shape
+   the fit launched it with. Every phase from 14 on prints its seconds.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -128,8 +151,16 @@ float64, under `rejection_*` keys, and for the discrete paths the launches
 of the calibration, outlier and cap runs under `marg_launches`,
 `gibbs_launches` and `cap_launches`, the Kepler kernel at the calibration
 fit's Laplace shape under `marg_*` and the fused pair at each discrete
-shape under `marg_*`, `gibbs_*` (the HMC leg), `gibbs_sweep_*` and `cap_*`;
-the last is
+shape under `marg_*`, `gibbs_*` (the HMC leg), `gibbs_sweep_*` and `cap_*`,
+the Kepler kernel at the RV-GP fit's (4096, 80) under `rvgp_*` (every
+kernel carries the RV-GP fit's launches as `rvgp_launches`), and the
+celerite pair, `celerite_fwd` and `celerite_bwd`, at (4096, 80) with one
+term, with its other shapes under `shapes` (the library time is the dense
+route: the dense matrix, `cholesky_ex` and `solve_triangular`, several
+calls; the bound counts the function's inputs and outputs, and each shape
+gives the saved array's traffic beside it as `saved_array_ms` and the
+forward's time without it), and the Laplace step of the RV-GP model under
+`rvgp_laplace`; the last is
 `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -153,10 +184,10 @@ JOINT_TRUE = dict(a=9.0, e=0.1, i=0.6, omega=1.0, Omega=2.0, tp=56500.0, M=1.6, 
 JOINT_MASS = 12.0
 JOINT_EPOCHS = 70
 JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
-CHAINS, ADAPTATION, ITERATIONS = 4096, 700, 300
-# the joint fit's adaptation and draws, cut from the headline's to make
-# room for the discrete fits
-JOINT_ADAPTATION, JOINT_ITERATIONS = 400, 200
+# the headline and joint fits' adaptation and draws (the bench's 700 +
+# 3000), cut to keep the whole script inside its time limit
+CHAINS, ADAPTATION, ITERATIONS = 4096, 400, 200
+JOINT_ADAPTATION, JOINT_ITERATIONS = 300, 150
 # NUTS and jittered HMC (`octofit(sampler="nuts" | "hmc")`) on the headline
 # model the ChEES phase initialized: every chain adapts its own step size
 # and dense metric, all chains step in lockstep
@@ -194,7 +225,7 @@ PT_NUTS_CHAINS = PT_CHAINS // PA_KWARGS["n_walkers"] * PT_NUTS_KWARGS["n_walkers
 # Gibbs mode. The cap case: the outlier model at 12 epochs, K = 4096
 # combinations, the most that are marginalized, at CAP_CHAINS chains.
 CAL_SCALE = 1.2
-CAL_ADAPTATION, CAL_ITERATIONS = 400, 200
+CAL_ADAPTATION, CAL_ITERATIONS = 300, 150
 OUTLIER_EPOCHS, OUTLIER_INDEX, OUTLIER_SHIFT = 13, 5, (60.0, -40.0)
 # Gibbs-within-HMC adapts each chain's dense metric in Stan's windows, which
 # below 150 warmup steps are one window over the middle 75% of the warmup:
@@ -202,6 +233,14 @@ OUTLIER_EPOCHS, OUTLIER_INDEX, OUTLIER_SHIFT = 13, 5, (60.0, -40.0)
 # warmup's 75-draw window left R-hat at 1.19 after 50 draws (PERF.md)
 GIBBS_ADAPTATION, GIBBS_ITERATIONS = 149, 150
 CAP_EPOCHS, CAP_CHAINS = 12, 256
+
+# the RV-GP fit (`examples/03_rv_gp.py`): a 1.2 Mjup planet on a 0.25 AU
+# orbit in 80 absolute RVs with quasi-periodic activity, modelled by an
+# SHOTerm Gaussian process (the celerite recursion)
+RVGP_TRUE = dict(a=0.25, e=0.15, omega=0.8, tp=57000.0, M=1.0)
+RVGP_MASS = 1.2
+RVGP_EPOCHS = 80
+RVGP_ADAPTATION, RVGP_ITERATIONS = 400, 200
 
 # the OFTI workflow (`examples/09_ofti_rejection.py`): 8 epochs of relative
 # astrometry, the Thiele-Innes constants marginalized analytically, sampled
@@ -805,6 +844,68 @@ def build_ofti_model(ot, data, **model_kw):
     return ot.LogDensityModel(system, verbosity=0, **model_kw)
 
 
+def rvgp_data(ot) -> dict:
+    """`examples/03_rv_gp.py`'s data, made line by line as there (seed 0)
+    with the port's orbitsolve on the CPU in float64: 80 epochs over four
+    periods of a 1.2 Mjup planet, a quasi-periodic activity signal, an
+    offset of 12 m/s and 1.5 m/s of noise."""
+    from octofitter_tpu_torch.constants import MJUP2MSOL
+
+    rng = np.random.default_rng(0)
+    orbit = ot.RadialVelocityOrbit.from_params(**RVGP_TRUE, device="cpu")
+    P = float(ot.orbits.period(orbit))
+    epochs = np.sort(rng.uniform(57000.0, 57000.0 + 4 * P, RVGP_EPOCHS))
+    rv_planet = ot.orbits.radvel(ot.orbitsolve(orbit, epochs), RVGP_MASS * MJUP2MSOL).numpy()
+    activity = 4.0 * np.sin(2 * np.pi * epochs / 23.0) * np.exp(
+        0.2 * np.sin(2 * np.pi * epochs / 290.0))
+    rv = rv_planet + activity + 12.0 + rng.standard_normal(RVGP_EPOCHS) * 1.5
+    return dict(epoch=epochs, rv=rv, σ_rv=np.full(RVGP_EPOCHS, 1.5))
+
+
+def build_rvgp_model(pkg, data, gp_method="scan", epoch_subset=None, **model_kw):
+    """`examples/03_rv_gp.py`'s model with either package's API (`pkg`): one
+    RadialVelocityOrbit planet with a mass, absolute RVs with an offset, a
+    jitter and an SHOTerm(S0, w0, Q=3) Gaussian process; D = 11. With
+    `epoch_subset` (row indices), the RVs are conditioned on those rows and
+    scored at the others (`likeobj_from_epoch_subset`, cross-validation)."""
+    dist = pkg.distributions
+    rvobs = pkg.StarAbsoluteRVObs(
+        data,
+        dict(offset=dist.Normal(0.0, 50.0), jitter=dist.LogUniform(0.01, 20.0),
+             gp_S0=dist.LogUniform(0.1, 100.0), gp_w0=dist.LogUniform(0.01, 2.0)),
+        name="HARPS",
+        gaussian_process=lambda obs: pkg.rv.SHOTerm(S0=obs.gp_S0, w0=obs.gp_w0, Q=3.0),
+        gp_method=gp_method,
+    )
+    if epoch_subset is not None:
+        rvobs = rvobs.likeobj_from_epoch_subset(epoch_subset)
+    b = pkg.Planet(
+        name="b",
+        basis="RadialVelocityOrbit",
+        variables=dict(a=dist.Uniform(0.05, 1.0), e=dist.Uniform(0.0, 0.7),
+                       omega=pkg.UniformCircular(), tp=dist.Uniform(56980.0, 57020.0),
+                       mass=dist.Uniform(0.0, 20.0)),
+    )
+    system = pkg.System(
+        name="rv-gp",
+        variables=dict(M=dist.truncated(dist.Normal(1.0, 0.05), lower=0.1)),
+        companions=[b],
+        observations=[rvobs],
+    )
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def rvgp_points_near_truth(ot, model, n, seed):
+    """`n` unconstrained points of the RV-GP model: the truth (offset 12,
+    jitter 0.5, S0 5, w0 0.27) plus N(0, 1e-3) in every coordinate."""
+    t = RVGP_TRUE
+    nat = torch.tensor([[t["M"], 12.0, 0.5, 5.0, 0.27, t["a"], t["e"], np.cos(t["omega"]),
+                         np.sin(t["omega"]), t["tp"], RVGP_MASS]], dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    return model.link(model.tensor(nat)).cpu().double() + torch.as_tensor(
+        1e-3 * rng.standard_normal((n, model.D)))
+
+
 def joint_points_near_truth(ot, model, n, seed):
     """`n` unconstrained points of the joint model: the truth (RV jitter
     5 m/s) plus N(0, 1e-3) in every coordinate."""
@@ -856,13 +957,20 @@ def headline_points(ot, ref, n=64):
 
 
 def _reset_launches(kk, osk) -> None:
+    from octofitter_tpu_torch.rv import celerite_cuda as cc
+
     kk.launches = osk.launches_fwd = osk.launches_bwd = 0
+    cc.launches_fwd = cc.launches_bwd = 0
     kk.launch_shapes.clear()
+    cc.launch_shapes.clear()
 
 
 def _launches(kk, osk) -> dict:
+    from octofitter_tpu_torch.rv import celerite_cuda as cc
+
     return {"kepler_solve": kk.launches, "orbit_solve_fwd": osk.launches_fwd,
-            "orbit_solve_bwd": osk.launches_bwd}
+            "orbit_solve_bwd": osk.launches_bwd, "celerite_fwd": cc.launches_fwd,
+            "celerite_bwd": cc.launches_bwd}
 
 
 def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict:
@@ -870,8 +978,13 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
     set to 0 just before and read just after, scored by the device
     diagnostics on the draws as the sampler holds them (float32). Checks
     what every path must show: finite draws, max split-R-hat < 1.05, the
-    standalone Kepler kernel launched (by the Laplace step) and the fused
-    pair launched on every batched gradient evaluation."""
+    standalone Kepler kernel launched (by the Laplace step) and, where a
+    planet has a Kep or Visual orbit, the fused pair launched on every
+    batched gradient evaluation; a model without one solves its orbits
+    with the standalone Kepler kernel, which must then run on every
+    evaluation."""
+    fused_pair = any(issubclass(p.basis, (ot.KepOrbit, ot.VisualOrbit))
+                     for p in model.system.planets)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kk, osk)
@@ -908,9 +1021,12 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
     log(f"  peak device memory of the run {peak_gib:.3f} GiB")
     if launches["kepler_solve"] == 0:
         raise AssertionError(f"{label}: the Laplace step never launched the standalone Kepler kernel")
-    if min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) < n_evals:
+    if fused_pair and min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) < n_evals:
         raise AssertionError(f"{label}: the fused orbit-solve kernels were launched fewer times "
                              f"than the {n_evals} gradient evaluations")
+    if not fused_pair and launches["kepler_solve"] < n_evals:
+        raise AssertionError(f"{label}: the Kepler kernel was launched fewer times than the "
+                             f"{n_evals} gradient evaluations")
     if not bool(np.isfinite(x).all()):
         raise AssertionError(f"{label}: non-finite draws")
     if not rhat_max < 1.05:
@@ -1608,6 +1724,429 @@ def fused_vs_composed_phase(ot, model, chain, table, chains: int) -> None:
         f"{best['composed']:.1f} us = {best['fused'] / best['composed']:.3f}")
 
 
+# The celerite kernel pair (`rv/csrc/celerite.cu`) against its plain version
+# (`rv/celerite.py:_celerite_plain`, autograd for the backward), at the RV-GP
+# path's (4096, 80) with one term (SHO) and two (SHO + Real), at 2^17 rows x
+# 80 epochs and at a long series, 8 rows x 2048 epochs, on the same inputs
+# in float32 and in float64. Errors: the log-likelihood per row against
+# max(|ll|, 1); each gradient per row against the row's largest entry of
+# that gradient (at least 1). Float64: 1e-10 for both. Float32: the two
+# versions round differently (the kernel sums epochs in order, torch
+# pairwise; S is kept symmetric in the kernel), and a row's float32 error
+# grows with its covariance's condition number (an SHO amplitude of ~600
+# against variances of 1-6): the worst row of the log-likelihood and of each
+# gradient may differ from the plain version by CEL_F32_FACTOR times the
+# plain version's own worst-row float32 error (against float64 on the same
+# inputs), and at least CEL_F32_FLOOR.
+CEL_SHAPES = ((CHAINS, RVGP_EPOCHS, 1), (CHAINS, RVGP_EPOCHS, 2),
+              (BIG_CHAINS, RVGP_EPOCHS, 1), (8, 2048, 1))
+CEL_F64_TOL = 1e-10
+CEL_F32_FLOOR = (1e-5, 1e-4)  # ll, gradient
+CEL_F32_FACTOR = 4.0
+CEL_EDGE_ROWS = 3  # rows made non-positive-definite
+# the span of the epochs (days): examples/03's 80 epochs cover 183 days; the
+# long series one epoch per 2.3 days
+CEL_SPAN = {RVGP_EPOCHS: 183.0, 2048: 4700.0}
+
+
+def _cel_label(B, n, J) -> str:
+    return f"({B}, {n}) J={J}"
+
+
+def _cel_inputs(B, n, J, dtype, seed=0, edge=True):
+    """Coefficients (B, J) of an SHOTerm over the RV-GP model's prior ranges
+    (S0 in LogUniform(0.1, 100), w0 in LogUniform(0.01, 2)) with Q in
+    U(0.8, 5), plus for J = 2 a RealTerm (a in LogUniform(0.1, 30), c in
+    LogUniform(0.01, 1)); sorted relative epochs (n,); residuals and
+    variances (B, n) on the card; with `edge`, the first CEL_EDGE_ROWS rows
+    made non-positive-definite (first term a = 10, b = 50; variances 1e-4)."""
+    rng = np.random.default_rng(seed)
+    loguniform = lambda lo, hi: np.exp(rng.uniform(np.log(lo), np.log(hi), B))  # noqa: E731
+    S0, w0, Q = loguniform(0.1, 100.0), loguniform(0.01, 2.0), rng.uniform(0.8, 5.0, B)
+    eta = np.sqrt(4 * Q * Q - 1)
+    a, c = S0 * w0 * Q, w0 / (2 * Q)
+    terms = [(a, a / eta, c, c * eta)]
+    if J == 2:
+        zero = np.zeros(B)
+        terms.append((loguniform(0.1, 30.0), zero, loguniform(0.01, 1.0), zero))
+    a, b, c, d = (np.stack(x, axis=-1) for x in zip(*terms))
+    edge_rows = CEL_EDGE_ROWS if edge else 0
+    a[:edge_rows, 0], b[:edge_rows, 0] = 10.0, 50.0  # b d > a c: not PSD
+    t = np.sort(rng.uniform(0.0, CEL_SPAN[n], n))
+    t -= t[0]
+    y = 3.0 * rng.standard_normal((B, n))
+    var = rng.uniform(1.0, 6.0, (B, n))
+    var[:edge_rows] = 1e-4
+    gll = rng.uniform(0.5, 1.5, B)
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device="cuda")  # noqa: E731
+    return [to(x) for x in (a, b, c, d)], to(t), to(y), to(var), to(gll)
+
+
+def _dense_celerite_ll(a, b, c, d, t, y, var):
+    """The same log-likelihood by library calls: the celerite terms' dense
+    matrix, `cholesky_ex`, `solve_triangular` (the dense route of
+    `gp_loglike`)."""
+    from octofitter_tpu_torch.rv import celerite as cel
+
+    term = cel.ComplexTerm(a[:, 0], b[:, 0], c[:, 0], d[:, 0])
+    for j in range(1, a.shape[1]):
+        term = term + cel.ComplexTerm(a[:, j], b[:, j], c[:, j], d[:, j])
+    L = torch.linalg.cholesky_ex(term.matrix(t, t) + torch.diag_embed(var)).L
+    alpha = torch.linalg.solve_triangular(L, y[..., None], upper=False)[..., 0]
+    return (-0.5 * torch.sum(alpha**2, dim=-1)
+            - torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+            - 0.5 * t.shape[0] * math.log(2 * math.pi))
+
+
+def _row_errors(x, ref, ok):
+    """Per row, max |x - ref| over the row's entries against max(largest
+    |ref| entry of the row, 1); 0 in the rows not `ok`."""
+    x, ref = x.reshape(x.shape[0], -1).double(), ref.reshape(ref.shape[0], -1).double()
+    err = (x - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1).clamp(min=1.0)
+    return torch.where(ok, err, 0.0)
+
+
+def _cel_check(label, dtype, out_k, out_p, ref=None):
+    """(ll error, gradient error, largest error over tolerance) of the
+    kernel's (ll, grads) against the plain version's, each the worst row's;
+    `ref` is the plain version's float64 result on the same inputs, which
+    sets the float32 tolerance of each output from the plain version's own
+    worst-row error. The -inf rows must agree and carry zero,
+    finite gradients."""
+    (ll_k, g_k), (ll_p, g_p) = out_k, out_p
+    ok = torch.isfinite(ll_p)
+    if not torch.equal(ok, torch.isfinite(ll_k)):
+        raise AssertionError(f"celerite kernel at {label} {dtype}: its -inf rows differ from the "
+                             "plain version's")
+    if int((~ok).sum()) < CEL_EDGE_ROWS:
+        raise AssertionError(f"celerite kernel at {label} {dtype}: the edge rows are not at -inf")
+    for gk in g_k:
+        if not (bool(torch.isfinite(gk).all()) and bool((gk[~ok] == 0).all())):
+            raise AssertionError(f"celerite kernel at {label} {dtype}: a non-finite gradient, or a "
+                                 "non-zero one in a -inf row")
+    ll_p1, ll_k1 = ll_p[:, None], ll_k[:, None]
+    errs = [_row_errors(ll_k1, ll_p1, ok)] + [_row_errors(gk, gp, ok) for gk, gp in zip(g_k, g_p)]
+    if ref is None:
+        tols = [torch.full_like(e, CEL_F64_TOL) for e in errs]
+    else:
+        ll_r, g_r = ref
+        own = [_row_errors(ll_p1, ll_r[:, None], ok)] + [
+            _row_errors(gp, gr, ok) for gp, gr in zip(g_p, g_r)]
+        tols = [torch.clamp(CEL_F32_FACTOR * o, min=CEL_F32_FLOOR[k > 0])
+                for k, o in enumerate(own)]
+    ratio = max(float(e.max()) / float(t.max()) for e, t in zip(errs, tols))
+    return float(errs[0].max()), max(float(e.max()) for e in errs[1:]), ratio
+
+
+def celerite_kernel_phase(cc, cel) -> dict:
+    """The pair against its plain version at CEL_SHAPES on the same inputs
+    in both precisions, then timed in float32 (plain, kernel, kernel, plain)
+    beside the dense route by library calls."""
+    res = {}
+    for B, n, J in CEL_SHAPES:
+        label = _cel_label(B, n, J)
+        row = {"B": B, "n": n, "J": J}
+        coefs32, t32, y32, var32, gll32 = _cel_inputs(B, n, J, torch.float32)
+        out = {}
+        for dtype in (torch.float64, torch.float32):
+            coefs, t, y, var, gll = (x.to(dtype) for x in
+                                     (torch.stack(coefs32), t32, y32, var32, gll32))
+            coefs = list(coefs.unbind(0))
+            ll_k, saved = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
+            g_k = cc.celerite_backward_cuda(*coefs, t, saved, ll_k, gll)
+            xs = [x.clone().requires_grad_(True) for x in (*coefs, y, var)]
+            ll_p = cel._celerite_plain(*xs[:4], t, *xs[4:])
+            g_p = torch.autograd.grad(torch.where(torch.isfinite(ll_p), ll_p, 0.0) @ gll, xs)
+            torch.cuda.synchronize()
+            out[dtype] = ((ll_k, g_k), (ll_p.detach(), g_p))
+            del saved, xs, ll_p
+        for dtype in (torch.float64, torch.float32):
+            ref = out[torch.float64][1] if dtype == torch.float32 else None
+            ll_err, g_err, ratio = _cel_check(label, dtype, *out[dtype], ref=ref)
+            tol = (f"tol {CEL_F64_TOL:.0e}" if ref is None else
+                   f"tol max({CEL_F32_FACTOR:g} x the plain version's own worst-row error "
+                   f"against float64, {CEL_F32_FLOOR})")
+            log(f"celerite kernel vs plain {label} {dtype}: ll {ll_err:.3e}, gradient {g_err:.3e}, "
+                f"{ratio:.3f} of the {tol}; "
+                f"{int((~torch.isfinite(out[dtype][0][0])).sum())} rows at -inf")
+            if not ratio <= 1.0:
+                raise AssertionError(f"celerite kernel disagrees with its plain version at {label} "
+                                     f"in {dtype}")
+            key = "" if dtype == torch.float32 else "_f64"
+            row[f"ll_err{key}"], row[f"grad_err{key}"], row[f"err_over_tol{key}"] = (
+                ll_err, g_err, ratio)
+        del out
+        # timing, float32
+        coefs, t, y, var, gll = coefs32, t32, y32, var32, gll32
+        ll, saved = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
+        xs = [x.clone().requires_grad_(True) for x in (*coefs, y, var)]
+        ll_p = cel._celerite_plain(*xs[:4], t, *xs[4:])
+        ll_d = _dense_celerite_ll(*xs[:4], t, *xs[4:])
+        n_plain = 1 if n > 256 else 3  # the plain loop at 2048 epochs takes ~0.6 s + 2 s
+        fns = {
+            "fwd": lambda: cc.celerite_forward_cuda(*coefs, t, y, var, save=True),
+            "fwd_nosave": lambda: cc.celerite_forward_cuda(*coefs, t, y, var, save=False),
+            "plain_fwd": lambda: cel._celerite_plain(*coefs, t, y, var),
+            "library_fwd": lambda: _dense_celerite_ll(*coefs, t, y, var),
+            "bwd": lambda: cc.celerite_backward_cuda(*coefs, t, saved, ll, gll),
+            "plain_bwd": lambda: torch.autograd.grad(ll_p, xs, gll, retain_graph=True),
+            "library_bwd": lambda: torch.autograd.grad(ll_d, xs, gll, retain_graph=True),
+        }
+        times = {k: [] for k in fns}
+        n_iter = lambda name: 50 if name in ("fwd", "fwd_nosave", "bwd") else n_plain  # noqa: E731
+        with torch.no_grad():
+            for name in ("plain_fwd", "fwd", "fwd_nosave", "fwd", "fwd_nosave", "plain_fwd",
+                         "library_fwd"):
+                times[name].append(_time_ms(fns[name], n_iter(name)))
+        for name in ("plain_bwd", "bwd", "bwd", "plain_bwd", "library_bwd"):
+            times[name].append(_time_ms(fns[name], n_iter(name)))
+        for k, v in times.items():
+            row[k] = min(v)
+        log(f"timing celerite {label} float32: forward {row['fwd']:.4f} ms, "
+            f"{row['fwd_nosave']:.4f} without the saved array (plain "
+            f"{row['plain_fwd']:.4f}, dense library route {row['library_fwd']:.4f}); backward "
+            f"{row['bwd']:.4f} ms (plain {row['plain_bwd']:.4f}, dense {row['library_bwd']:.4f}); "
+            f"runs {times}")
+        res[label] = row
+        del ll_p, ll_d, xs, saved
+        torch.cuda.empty_cache()
+    return res
+
+
+def celerite_bound(B, n, J, part) -> tuple[float, str]:
+    """The least time for the function in float32: its inputs read and its
+    outputs written once (forward: a, b, c, d, t, y, var read, ll written;
+    backward: the same inputs and the cotangent read, the six gradients
+    written), and its arithmetic (per row and epoch about 12 J + 7 (2J)^2
+    operations forward, 12 J + 20 (2J)^2 backward, each exp and sincos
+    one) at the float32 peak. The array the forward saves for the backward
+    is this design's choice, not the function's: `celerite_saved_ms`."""
+    inputs = 4 * B * J + n + 2 * B * n
+    if part == "fwd":
+        words = inputs + B
+        ops = (12 * J + 7 * (2 * J) ** 2) * B * n
+    else:
+        words = inputs + B + 4 * B * J + 2 * B * n
+        ops = (12 * J + 20 * (2 * J) ** 2) * B * n
+    return bound_ms(4 * words, ops, torch.float32)
+
+
+def celerite_saved_ms(B, n, J) -> float:
+    """The time the saved array's bytes take at the memory rate in float32,
+    once written (forward) or once read (backward)."""
+    from octofitter_tpu_torch.rv.celerite_cuda import saved_fields
+
+    return bound_ms(4 * n * saved_fields(J) * B, 0, torch.float32)[0]
+
+
+def _device_ops_per_call(fn, n=3):
+    """Device operations (kernels, copies, fills) per call of `fn` over `n`
+    calls under torch.profiler, or None where the profiler shows none. It
+    traces the device only: gathering the host's op events as well took
+    45 s for one Laplace step (`torch.func` nests many host ops in each
+    device op) on the H100 machine's host."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in rows)
+    return count / n if count else None
+
+
+# the model's evaluation near the truth (S0 ~ 5 against variances ~2.5, well
+# conditioned) through the kernel pair and through the plain recursion, both
+# float32: ln_post and each chain's gradient against their largest entry
+RVGP_EVAL_TOL = (1e-5, 1e-3)
+
+
+def rvgp_evaluation_phase(ot, model, ref, cc) -> dict:
+    """One batched value-and-gradient of the RV-GP model at CHAINS points
+    near the truth through the celerite kernel pair and through the plain
+    recursion (`ln_post(..., fused=False)`; the RadialVelocityOrbit solve
+    is the same on both), in turns: each path's host and device ms and
+    device operations per evaluation, and the two paths' agreement."""
+    theta = model.tensor(rvgp_points_near_truth(ot, ref, CHAINS, seed=6))
+    kernel = lambda: model.ln_post_and_grad(theta)  # noqa: E731
+    plain = lambda: model._value_and_grad(lambda th: model.ln_post(th, fused=False), theta)  # noqa: E731
+    before = cc.launches_bwd
+    lp_k, g_k = kernel()
+    if cc.launches_bwd != before + 1:
+        raise AssertionError("rv-gp: ln_post_and_grad did not launch the celerite backward kernel")
+    lp_p, g_p = plain()
+    err_lp = float(((lp_k - lp_p).abs() / lp_p.abs().clamp(min=1.0)).max())
+    err_g = float(((g_k - g_p).abs().amax(-1) / g_p.abs().amax(-1).clamp(min=1.0)).max())
+    log(f"rv-gp evaluation at {CHAINS} chains: kernel vs plain path ln_post {err_lp:.3e}, "
+        f"gradient {err_g:.3e} (tol {RVGP_EVAL_TOL})")
+    if not (err_lp <= RVGP_EVAL_TOL[0] and err_g <= RVGP_EVAL_TOL[1]):
+        raise AssertionError("rv-gp: the kernel path and the plain path disagree")
+    res = {}
+    for name, fn, n_iter in (("plain", plain, 5), ("kernel", kernel, 20), ("kernel", kernel, 20),
+                             ("plain", plain, 5)):
+        dev, host = _time_both(fn, n_iter)
+        prev = res.get(name, (math.inf, math.inf))
+        res[name] = (min(prev[0], dev), min(prev[1], host))
+    ops = {name: _device_ops_per_call(fn) for name, fn in (("kernel", kernel), ("plain", plain))}
+    for name in ("plain", "kernel"):
+        log(f"  {name} path: {res[name][1] * 1e3:.1f} us per evaluation on the host clock, "
+            f"{res[name][0] * 1e3:.1f} us by CUDA events, "
+            f"{ops[name] if ops[name] is not None else 'not measured'} device ops per evaluation")
+    return {"us": {k: v[1] * 1e3 for k, v in res.items()},
+            "device_us": {k: v[0] * 1e3 for k, v in res.items()}, "ops": ops}
+
+
+RVGP_QP_TOL = (2e-3, 2e-2)  # float32 Cholesky of 80 x 80: ll, gradient rows
+
+
+def rvgp_extra_checks(ot, cc, cel) -> dict:
+    """The associative method at the long series against the kernel
+    (SHO terms, Q >= 0.8 > 1/sqrt(2), so a >= |b| and the state-space form
+    holds; float64 gate, float32 printed), timed; and a QuasiPeriodicKernel's
+    dense `gp_loglike` value and gradient at (CHAINS, 80) in float32 on the
+    card against float64 on the CPU."""
+    from octofitter_tpu_torch.rv import kernels as ker
+
+    out = {}
+    B, n = 8, 2048
+    for dtype in (torch.float64, torch.float32):
+        coefs, t, y, var, _ = _cel_inputs(B, n, 1, dtype, seed=3, edge=False)
+        xs = [x.clone().requires_grad_(True) for x in (*coefs, y, var)]
+        term = cel.ComplexTerm(*(x[:, 0] for x in xs[:4]))
+        ll_a = cel.celerite_loglike_assoc(term, t, xs[4], xs[5])
+        g_a = torch.autograd.grad(ll_a.sum(), xs)
+        ll_k = cel.celerite_loglike(term, t, xs[4], xs[5])
+        g_k = torch.autograd.grad(ll_k.sum(), xs)
+        if not (bool(torch.isfinite(ll_a).all()) and bool(torch.isfinite(ll_k).all())):
+            raise AssertionError(f"associative check: non-finite log-likelihoods in {dtype}")
+        ll_a, ll_k = ll_a.detach(), ll_k.detach()
+        ll_err = float(((ll_a - ll_k).abs() / ll_k.abs().clamp(min=1.0)).max())
+        g_err = max(float(((ga - gk).abs().amax() / gk.abs().amax().clamp(min=1.0)))
+                    for ga, gk in zip(g_a, g_k))
+        log(f"associative vs kernel at ({B}, {n}) {dtype}: ll {ll_err:.3e}, gradient {g_err:.3e}"
+            + (" (gate 1e-8)" if dtype == torch.float64 else " (printed, no gate)"))
+        if dtype == torch.float64 and not (ll_err <= 1e-8 and g_err <= 1e-8):
+            raise AssertionError("associative celerite disagrees with the kernel in float64")
+        if dtype == torch.float32:
+            ms_a = _time_ms(lambda: torch.autograd.grad(
+                cel.celerite_loglike_assoc(term, t, xs[4], xs[5]).sum(), xs), 5)
+            ms_k = _time_ms(lambda: torch.autograd.grad(
+                cel.celerite_loglike(term, t, xs[4], xs[5]).sum(), xs), 20)
+            log(f"  value and gradient at ({B}, {n}) float32: associative {ms_a:.3f} ms, "
+                f"kernel pair {ms_k:.3f} ms")
+            out["assoc"] = dict(ll_err=ll_err, grad_err=g_err, ms=ms_a, kernel_ms=ms_k)
+    rng = np.random.default_rng(8)
+    t = np.sort(rng.uniform(0.0, 183.0, RVGP_EPOCHS))
+    hyper = np.stack([rng.uniform(1.0, 4.0, CHAINS), rng.uniform(15.0, 40.0, CHAINS),
+                      rng.uniform(5.0, 25.0, CHAINS), rng.uniform(0.3, 0.8, CHAINS)], -1)
+    y = 3.0 * rng.standard_normal((CHAINS, RVGP_EPOCHS))
+    var = rng.uniform(1.0, 6.0, (CHAINS, RVGP_EPOCHS))
+    res = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        h = torch.as_tensor(hyper, dtype=dtype, device=device).requires_grad_(True)
+        yy = torch.as_tensor(y, dtype=dtype, device=device).requires_grad_(True)
+        k = ker.QuasiPeriodicKernel(*h.unbind(-1))
+        tt = torch.as_tensor(t, dtype=dtype, device=device)
+        ll = ker.gp_loglike(k, tt, yy, torch.as_tensor(var, dtype=dtype, device=device))
+        g = torch.autograd.grad(ll.sum(), (h, yy))
+        res[device] = [x.detach().double().cpu() for x in (ll, *g)]
+    ll32, *g32 = res["cuda"]
+    ll64, *g64 = res["cpu"]
+    ll_err = float(((ll32 - ll64).abs() / ll64.abs().clamp(min=1.0)).max())
+    g_err = max(float(((a - b).abs().amax(-1) / b.abs().amax(-1).clamp(min=1.0)).max())
+                for a, b in zip(g32, g64))
+    log(f"QuasiPeriodicKernel dense gp_loglike at ({CHAINS}, {RVGP_EPOCHS}): float32 card vs "
+        f"float64 CPU ll {ll_err:.3e}, gradient {g_err:.3e} (tol {RVGP_QP_TOL})")
+    if not (ll_err <= RVGP_QP_TOL[0] and g_err <= RVGP_QP_TOL[1]):
+        raise AssertionError("dense QuasiPeriodicKernel gp_loglike disagrees with float64")
+    out["qp"] = dict(ll_err=ll_err, grad_err=g_err)
+    return out
+
+
+def rvgp_laplace_phase(kk, model, theta) -> dict:
+    """The Laplace step of `initialize` (`torch.func.hessian` of the
+    composed `ln_post`, which runs the plain celerite recursion: no
+    transform runs a ctypes kernel) at `theta`, timed twice on the host
+    clock after a first call, with its device operations and its launches
+    of the Kepler kernel and the celerite pair."""
+    from octofitter_tpu_torch.model.initialization import laplace
+    from octofitter_tpu_torch.rv import celerite_cuda as cc
+
+    x = theta.double().cpu().numpy()
+    laplace(model, x)
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(2):
+        kepler0, fwd0, bwd0 = kk.launches, cc.launches_fwd, cc.launches_bwd
+        t0 = time.perf_counter()
+        laplace(model, x)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = {"kepler_solve": kk.launches - kepler0, "celerite_fwd": cc.launches_fwd - fwd0,
+                "celerite_bwd": cc.launches_bwd - bwd0}
+    t_ops = time.perf_counter()
+    ops = _device_ops_per_call(lambda: laplace(model, x), n=1)
+    log(f"  the Laplace step's device-op count took {time.perf_counter() - t_ops:.2f} s")
+    log(f"rv-gp Laplace step (D = {model.D}): {min(seconds):.4f} s (runs {seconds}), "
+        f"{ops if ops is not None else 'not measured'} device ops, launches {launches}")
+    return {"seconds": min(seconds), "device_ops": ops, "launches": launches}
+
+
+def rvgp_phase(ot, kk, osk, adaptation=RVGP_ADAPTATION, iterations=RVGP_ITERATIONS,
+               checks=True) -> dict:
+    """The RV-GP path (`examples/03_rv_gp.py`). With `checks`: the float32
+    GPU model checked against a float64 CPU model, one evaluation through
+    the kernel pair and through the plain recursion, the Laplace step, the
+    kernel pair at its shapes, the associative and dense checks. Then
+    `octofit` with initialization at CHAINS chains through `fit_phase`
+    (the standalone Kepler kernel on every evaluation) with the celerite
+    pair launched on every gradient evaluation, the medians of b_mass and
+    b_a within 5 sd of the truth, and the Kepler kernel held to its twin at
+    every shape the fit launched it with (`kepler_rows`)."""
+    from octofitter_tpu_torch.orbits import kepler as kepler_mod
+    from octofitter_tpu_torch.rv import celerite as cel
+    from octofitter_tpu_torch.rv import celerite_cuda as cc
+
+    t0 = time.perf_counter()
+    data = rvgp_data(ot)
+    model = build_rvgp_model(ot, data, device="cuda", dtype=torch.float32)
+    checked = {}
+    if checks:
+        ref = build_rvgp_model(ot, data, device="cpu", dtype=torch.float64)
+        steps = {
+            "reference": lambda: reference_phase(
+                "rv-gp", model, ref, rvgp_points_near_truth(ot, ref, 64, seed=5)),
+            "evaluation": lambda: rvgp_evaluation_phase(ot, model, ref, cc),
+            "laplace": lambda: rvgp_laplace_phase(
+                kk, model, rvgp_points_near_truth(ot, ref, 1, seed=7)[0]),
+            "celerite": lambda: celerite_kernel_phase(cc, cel),
+            "extra": lambda: rvgp_extra_checks(ot, cc, cel),
+        }
+        for key, step in steps.items():
+            t_step = time.perf_counter()
+            checked[key] = step()
+            log(f"rv-gp {key} step: {time.perf_counter() - t_step:.2f} s")
+    res = fit_phase(ot, kk, osk, model, f"rv-gp fit (celerite SHO, {adaptation} + {iterations})",
+                    CHAINS, adaptation, iterations)
+    launches, n_evals = res["launches"], res["n_evals"]
+    res["celerite_shapes"] = dict(cc.launch_shapes)
+    log(f"  celerite forward by (rows, epochs, terms): {res['celerite_shapes']}")
+    if min(launches["celerite_fwd"], launches["celerite_bwd"]) < n_evals:
+        raise AssertionError(f"rv-gp: the celerite kernels were launched fewer times than the "
+                             f"{n_evals} gradient evaluations")
+    _gate_median("rv-gp", res["chain"], "b_mass", RVGP_MASS)
+    _gate_median("rv-gp", res["chain"], "b_a", RVGP_TRUE["a"])
+    t_step = time.perf_counter()
+    res["kepler_rows"] = kepler_path_phase(kk, kepler_mod, res["kepler_shapes"])
+    log(f"rv-gp Kepler step: {time.perf_counter() - t_step:.2f} s")
+    res.update(checked)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"rv-gp phase: {res['seconds']:.2f} s")
+    return res
+
+
 def main() -> int:
     name, _ = device_phase()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -1616,11 +2155,12 @@ def main() -> int:
     from octofitter_tpu_torch.orbits import kepler as kepler_mod
     from octofitter_tpu_torch.orbits.kernels import kepler as kk
     from octofitter_tpu_torch.orbits.kernels import orbit_solve as osk
+    from octofitter_tpu_torch.rv import celerite_cuda as cc
 
     # full float32 in matrix products and convolutions (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_phase([kk.SOURCE, osk.SOURCE])
+    build_phase([kk.SOURCE, osk.SOURCE, cc.SOURCE])
     kres = kernel_phase(kk, kepler_mod._markley, CHAINS)
     ores = orbit_phase(osk, elements, CHAINS)
     main = main_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
@@ -1640,6 +2180,8 @@ def main() -> int:
     outlier = outlier_phase(ot, kk, osk, cal["model"])
     cap = cap_phase(ot, kk, osk)
     dres = discrete_kernel_phase(osk, elements)
+    rvgp = rvgp_phase(ot, kk, osk)
+    gres = rvgp["kepler_rows"]
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -1800,6 +2342,63 @@ def main() -> int:
         "rejection_bound_ms": rej_bound[0],
         "rejection_bound_by": rej_bound[1],
     })
+    # the RV-GP path: the standalone Kepler kernel at the fit's chains x 80
+    # epochs (every evaluation), and the celerite pair at its shapes
+    rvgp_kepler_shape = (CHAINS, RVGP_EPOCHS)
+    rvgp_kepler_row = gres[(rvgp_kepler_shape, f32)]
+    kernels[0].update({
+        "rvgp_launches": rvgp["launches"]["kepler_solve"],
+        "rvgp_launch_shapes": {str(sh): k for sh, k in rvgp["kepler_shapes"].items()},
+        "rvgp_shape": str(rvgp_kepler_shape),
+        "rvgp_max_abs_err": rvgp_kepler_row["err"],
+        "rvgp_ms": rvgp_kepler_row["ms"],
+        "rvgp_plain_ms": rvgp_kepler_row["plain_ms"],
+        "rvgp_bound_ms": bound_ms(12 * rvgp_kepler_row["n"], OPS_KEPLER * rvgp_kepler_row["n"],
+                                  f32)[0],
+    })
+    for k in kernels:
+        k["rvgp_launches"] = rvgp["launches"][k["name"]]
+    main_label = _cel_label(CHAINS, RVGP_EPOCHS, 1)
+    for part in ("fwd", "bwd"):
+        shapes = {}
+        for label, row in rvgp["celerite"].items():
+            bnd = celerite_bound(row["B"], row["n"], row["J"], part)
+            shapes[label] = {
+                "ms": row[part], "plain_ms": row[f"plain_{part}"], "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": row[f"library_{part}"],
+                "saved_array_ms": celerite_saved_ms(row["B"], row["n"], row["J"]),
+                "ll_err": row["ll_err"], "grad_err": row["grad_err"],
+                "err_over_tol": row["err_over_tol"], "ll_err_f64": row["ll_err_f64"],
+                "grad_err_f64": row["grad_err_f64"]}
+            if part == "fwd":
+                shapes[label]["ms_without_saved_array"] = row["fwd_nosave"]
+        main_row = shapes[main_label]
+        kernels.append({
+            "name": f"celerite_{part}",
+            "route": "cuda",
+            "source": "octofitter_tpu_torch/rv/csrc/celerite.cu",
+            "replaces": "octofitter_tpu/rv/celerite.py:111",
+            "replaces_what": "the lax.scan recursion of celerite.py:111-173 (no Pallas kernel)",
+            "launches": rvgp["launches"][f"celerite_{part}"],
+            "max_abs_err": main_row["ll_err"] if part == "fwd" else main_row["grad_err"],
+            "max_err_over_tol": main_row["err_over_tol"],
+            "error_measure": ("log-likelihood, worst row, relative to max(|ll|, 1)" if part == "fwd"
+                              else "gradient, worst row, relative to its largest entry"),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "library_calls": "celerite dense matrix + torch.linalg.cholesky_ex + "
+                             "torch.linalg.solve_triangular" + (" (autograd)" if part == "bwd" else ""),
+            "shape": main_label,
+            "shapes": shapes,
+            "launch_shapes": {str(sh): k for sh, k in rvgp["celerite_shapes"].items()},
+            "rvgp_evaluation_us": rvgp["evaluation"]["us"],
+            "rvgp_evaluation_device_ops": rvgp["evaluation"]["ops"],
+            "rvgp_laplace": rvgp["laplace"],
+        })
+    kernels[-1]["associative"] = rvgp["extra"]["assoc"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 The same model-building API as the JAX package (`Planet`, `System`,
 `UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
-likelihoods without Gaussian processes, the continuous priors,
+likelihoods with Gaussian-process noise (dense kernels and celerite
+terms) and the RV archive loaders, the continuous priors,
 `LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
 `UserLikelihood`, `DirectLL` and `BlankLikelihood` user terms, discrete
 priors (`DiscreteUniform`, `Categorical`, `IIDVector`) marginalized or
@@ -16,8 +17,9 @@ and the diagnostics, `ess_rhat_batch_device` on the card among them,
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
 hand-written CUDA kernels (`orbits/kernels/csrc/orbit_solve.cu`, forward
-and backward, and the standalone Kepler solve `kepler.cu`), built with
-nvcc at first use. This package never imports JAX.
+and backward, and the standalone Kepler solve `kepler.cu`) and a celerite
+Gaussian process as a CUDA forward and backward pair
+(`rv/csrc/celerite.cu`), each built with nvcc at first use. This package never imports JAX.
 """
 
 from . import constants
@@ -65,6 +67,15 @@ from .rv import (
     StarAbsoluteRVMarginLikelihood,
     PlanetRelativeRVObs,
     PlanetRelativeRVLikelihood,
+)
+from .rv.data_sources import (
+    HARPS_RVBank_rvs,
+    HARPS_DR1_rvs,
+    HIRES_rvs,
+    Lick_rvs,
+    CES_lc_rvs,
+    CES_vlc_rvs,
+    radvel_posterior,
 )
 from . import io
 from .io import savechain, loadchain

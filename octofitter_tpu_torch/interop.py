@@ -7,9 +7,13 @@ flat unconstrained vector from one is valid as it stands in the other.
 packages can start their samplers from the same points.
 `load_jax_pt_checkpoint` reads a JAX `octofit_pigeons` checkpoint into
 the port's resume state, so both packages can continue one tuned ladder.
+`gp_kernel_from_jax` rebuilds a JAX Gaussian-process kernel or celerite
+term in the port, so both packages can evaluate the same kernel.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -62,3 +66,31 @@ def load_jax_pt_checkpoint(path, generator: torch.Generator) -> dict:
         state = pt_state_from_npz(z)
     state["generator_state"] = generator.get_state()
     return state
+
+
+def gp_kernel_from_jax(kernel, *, device="cuda"):
+    """The port's counterpart of a JAX `octofitter_tpu.rv` kernel: a
+    `Kernel` (sums and products included) or a `CeleriteTerm` (sums
+    included), matched by class name, its nested kernels rebuilt the same
+    way and every other field (a number or an array, JAX's or numpy's) made
+    a float64 tensor on `device`: the GPU unless the caller says
+    device="cpu"."""
+    from .rv import celerite, kernels
+
+    name = type(kernel).__name__
+    cls = getattr(kernels, name, None) or getattr(celerite, name, None)
+    if cls is None or not dataclasses.is_dataclass(kernel):
+        raise TypeError(f"not a Gaussian-process kernel or celerite term: {name}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("gp_kernel_from_jax was asked for a CUDA device, but none is "
+                           "available; pass device=\"cpu\"")
+    fields = {}
+    for field in dataclasses.fields(kernel):
+        value = getattr(kernel, field.name)
+        if dataclasses.is_dataclass(value):
+            fields[field.name] = gp_kernel_from_jax(value, device=device)
+        else:
+            fields[field.name] = torch.as_tensor(np.asarray(value, dtype=np.float64),
+                                                 device=device)
+    return cls(**fields)

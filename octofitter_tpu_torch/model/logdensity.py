@@ -31,7 +31,9 @@ redraws them (`samplers/gibbs.py`).
 (`orbits.orbitsolve`): the fused orbit-solve Function, first derivatives
 only (the default, so `ln_post_and_grad`, `prior_search` and the multistart
 optimizer run it), or with `fused=False` composed torch ops, differentiable
-to any order, which the Laplace step's `torch.func.hessian` asks for.
+to any order, which the Laplace step's `torch.func.hessian` asks for. The
+likelihoods see the same choice in their context's `fused`: the celerite
+Gaussian process runs its CUDA kernel pair only where it is true.
 """
 
 from __future__ import annotations
@@ -616,6 +618,7 @@ class LogDensityModel:
                         i_planet=i_planet,
                         epoch_start=start_map.get(id(obs), 0),
                         batch_shape=rows,
+                        fused=fused,
                     )
                     ll = ll + obs.ln_like(ctx)
             # system-attached observations (`system.jl:180-204`)
@@ -628,6 +631,7 @@ class LogDensityModel:
                     solutions=sols,
                     epoch_start=start_map.get(id(obs), 0),
                     batch_shape=rows,
+                    fused=fused,
                 )
                 ll = ll + obs.ln_like(ctx)
             return ll

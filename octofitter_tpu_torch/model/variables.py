@@ -147,6 +147,9 @@ class SystemObservationContext:
     solutions: tuple       # per-planet OrbitSolution over ALL epochs
     epoch_start: int       # this obs's start index into the epoch axis
     batch_shape: tuple | None = None  # the rows' shape (`likelihoods.utils.row_shape`)
+    # hand-written kernels with first derivatives (`LogDensityModel.ln_post`'s
+    # `fused`); False asks a likelihood for composed torch ops
+    fused: bool = True
 
 
 @dataclasses.dataclass
@@ -161,6 +164,7 @@ class PlanetObservationContext:
     i_planet: int
     epoch_start: int
     batch_shape: tuple | None = None
+    fused: bool = True
 
 
 class AbstractObs:

@@ -2,13 +2,18 @@
 
 PyTorch port of `octofitter_tpu/rv/likelihoods.py` (the reference's
 `OctofitterRadialVelocity`: `rv-absolute.jl`, `rv-absolute-margin.jl`,
-`rv-relative.jl`) without Gaussian processes: absolute stellar RV with
-offset, jitter and trend, the analytically zero-point-marginalized
-variant (Orvara-paper formula), and companion-relative RV.
+`rv-relative.jl`): absolute stellar RV with offset, jitter, trend and an
+optional Gaussian process, the analytically zero-point-marginalized
+variant (Orvara-paper formula), and companion-relative RV, also with an
+optional Gaussian process.
 
 The chain axis is written out: model RVs are (C, n) over the n epochs,
-per-chain parameters (offset, jitter) broadcast against the epoch axis,
-and every sum is over the epochs (`dim=-1`), giving one value per chain.
+per-chain parameters (offset, jitter, the kernel's hyperparameters)
+broadcast against the epoch axis, and every sum is over the epochs
+(`dim=-1`), giving one value per chain. A Gaussian process sees the epochs
+relative to the table's first, taken in float64 before the cast to the
+model's dtype (every kernel depends on differences only; float32 would
+otherwise keep MJD epochs to ~4e-3 d).
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from ..model.variables import (
     prepare_table,
 )
 from ..likelihoods.utils import gauss_logpdf, per_epoch, take_epochs
-from ..orbits import radvel, semimajoraxis
+from ..orbits import orbitsolve, radvel, semimajoraxis
+from .kernels import _gp_predict, gp_loglike
 
 _RV_COLS = ("epoch", "rv", "σ_rv")
 
@@ -46,12 +52,8 @@ def _like(ctx):
 
 
 class _BaseRVObs(AbstractObs):
-    def __init__(self, observations, variables, name, trend_function, gaussian_process):
-        if gaussian_process is not None:
-            raise NotImplementedError(
-                "Gaussian-process RV likelihoods (rv/kernels.py, rv/celerite.py) are "
-                "not ported to octofitter_tpu_torch yet (ROADMAP item 13)"
-            )
+    def __init__(self, observations, variables, name, trend_function, gaussian_process,
+                 gp_method="scan"):
         super().__init__(variables=variables, name=name)
         if isinstance(observations, dict):
             observations = {
@@ -60,6 +62,10 @@ class _BaseRVObs(AbstractObs):
             }
         self.table = prepare_table(observations, (_RV_COLS,), type(self).__name__)
         self.trend_function = trend_function
+        self.gaussian_process = gaussian_process
+        self.gp_method = gp_method
+        # the rows left out by `likeobj_from_epoch_subset`, for GP cross-validation
+        self.held_out_table = None
 
     def _offset_and_trend(self, ctx, offset=True):
         """The instrument's offset (if the model has one) plus its trend,
@@ -92,19 +98,48 @@ class _BaseRVObs(AbstractObs):
         resid = col("rv") - rv_model
         return resid, col("σ_rv") ** 2 + jitter**2
 
+    def _gp_epochs(self, name, table, like):
+        """`table`'s epochs less this table's first, in float64, then as a
+        tensor of `like`'s dtype and device (cached under `name`)."""
+        return self.constant(name, lambda: table["epoch"] - self.table["epoch"][0], like)
+
+    def _gp_ln_like(self, ctx):
+        """The Gaussian-process log-likelihood of the residuals, (C,)."""
+        resid, var = self._residual_and_variance(ctx)
+        kernel = self.gaussian_process(ctx.theta_obs)
+        t = self._gp_epochs("epoch_rel", self.table, resid)
+        return gp_loglike(kernel, t, resid, var, method=self.gp_method, fused=ctx.fused)
+
+    def _pointwise_ln_like(self, ctx):
+        """Per-epoch log-likelihood, (C, n); with a Gaussian process the
+        per-point marginal N(0, K_ii + var_i)."""
+        resid, var = self._residual_and_variance(ctx)
+        if self.gaussian_process is not None:
+            kernel = self.gaussian_process(ctx.theta_obs)
+            t = self._gp_epochs("epoch_rel", self.table, resid)
+            var = var + torch.diagonal(kernel.matrix(t, t), dim1=-2, dim2=-1)
+        return gauss_logpdf(resid, torch.sqrt(var))
+
     def _copy_with_table(self, table):
         new = object.__new__(type(self))
         AbstractObs.__init__(new, variables=None, name=self.name)
         new.var_specs = self.var_specs
         new.table = table
         new.trend_function = self.trend_function
+        new.gaussian_process = self.gaussian_process
+        new.gp_method = self.gp_method
+        new.held_out_table = None
         return new
 
     def likeobj_from_epoch_subset(self, idx):
-        """The same likelihood on rows `idx` of the table."""
+        """The same likelihood on rows `idx` of the table; the other rows
+        are kept as held-out data for GP cross-validation
+        (`rv-absolute.jl:115-130`)."""
         mask = np.zeros(len(self.table["epoch"]), bool)
         mask[idx] = True
-        return self._copy_with_table({k: v[mask] for k, v in self.table.items()})
+        new = self._copy_with_table({k: v[mask] for k, v in self.table.items()})
+        new.held_out_table = {k: v[~mask] for k, v in self.table.items()}
+        return new
 
     def generate_from_params(self, ctx, rng, add_noise=False):
         """A copy whose RVs are the model's at one parameter set (`ctx` of
@@ -123,27 +158,68 @@ class StarAbsoluteRVObs(_BaseRVObs):
     """Absolute RV of the host star (`rv-absolute.jl:56-318`).
 
     Observation variables: `offset` (zero point, m/s), `jitter` (m/s);
-    optional trend_function(theta_obs, epochs). A `gaussian_process`
-    raises NotImplementedError: it is not ported yet.
+    optional trend_function(theta_obs, epochs) and
+    gaussian_process(theta_obs) -> a `Kernel` or `CeleriteTerm` whose
+    hyperparameters are per-chain tensors. `gp_method` ("scan", the
+    default, or "associative") chooses how a celerite term is solved: the
+    O(N) recursion (on the GPU the CUDA kernel pair) or the parallel Kalman
+    filter for few chains and long series. After `likeobj_from_epoch_subset`
+    a GP likelihood conditions on the kept rows and scores the held-out
+    ones by the GP's prediction there.
     """
 
     def __init__(self, observations, variables=None, *, name,
-                 trend_function=None, gaussian_process=None):
+                 trend_function=None, gaussian_process=None,
+                 gp_method="scan"):
         if variables is None:
             variables = _default_rv_variables()
-        super().__init__(observations, variables, name, trend_function, gaussian_process)
+        super().__init__(observations, variables, name, trend_function,
+                         gaussian_process, gp_method)
 
     def simulate(self, ctx: SystemObservationContext):
         return {"rv_model": self._star_rv(ctx, offset=True), "epochs": self.table["epoch"]}
 
     def ln_like(self, ctx: SystemObservationContext):
+        if self.gaussian_process is None:
+            # without a GP, held-out rows are independent and not scored
+            resid, var = self._residual_and_variance(ctx)
+            return torch.sum(gauss_logpdf(resid, torch.sqrt(var)), dim=-1)
+        if self.held_out_table is None:
+            return self._gp_ln_like(ctx)
+        return self._held_out_ln_like(ctx)
+
+    def _held_out_ln_like(self, ctx):
+        """Cross-validation: the GP conditioned on the table's rows, scored
+        at the held-out rows (`rv-absolute.jl:253-304`), whose model RVs come
+        from solving each orbit at the held-out epochs."""
         resid, var = self._residual_and_variance(ctx)
-        return torch.sum(gauss_logpdf(resid, torch.sqrt(var)), dim=-1)
+        kernel = self.gaussian_process(ctx.theta_obs)
+        ho = self.held_out_table
+        col = lambda name: self.constant(f"held_out_{name}", lambda: ho[name], resid)  # noqa: E731
+        ho_epochs = col("epoch")
+        theta_obs = ctx.theta_obs
+        rv_ho = per_epoch(theta_obs.get("offset", 0.0), ctx)
+        if self.trend_function is not None:
+            rv_ho = rv_ho + self.trend_function(theta_obs, ho_epochs)
+        planets = ctx.theta_system.planets
+        for j, pname in enumerate(planets.keys()):
+            theta_p = planets[pname]
+            if not hasproperty(theta_p, "mass"):
+                continue
+            sol = orbitsolve(ctx.orbits[j], ho_epochs, fused=ctx.fused)
+            rv_ho = rv_ho + radvel(sol, theta_p.mass * MJUP2MSOL)
+        resid_ho = col("rv") - rv_ho
+        var_ho = col("σ_rv") ** 2 + per_epoch(theta_obs.get("jitter", 0.0), ctx) ** 2
+        t = self._gp_epochs("epoch_rel", self.table, resid)
+        t_ho = self._gp_epochs("held_out_epoch_rel", ho, resid)
+        pred, pvar, bad = _gp_predict(kernel, t, resid, var, t_ho)
+        ll = torch.sum(gauss_logpdf(resid_ho - pred, torch.sqrt(pvar + var_ho)), dim=-1)
+        return torch.where(bad, -torch.inf, ll)
 
     def pointwise_ln_like(self, ctx: SystemObservationContext):
-        """Per-epoch log-likelihood, (C, n)."""
-        resid, var = self._residual_and_variance(ctx)
-        return gauss_logpdf(resid, torch.sqrt(var))
+        """Per-epoch log-likelihood, (C, n); the GP case uses the per-point
+        marginal N(0, K_ii + var_i)."""
+        return self._pointwise_ln_like(ctx)
 
 
 class MarginalizedStarAbsoluteRVObs(_BaseRVObs):
@@ -184,8 +260,9 @@ class MarginalizedStarAbsoluteRVObs(_BaseRVObs):
 
 class PlanetRelativeRVObs(_BaseRVObs):
     """RV of a companion relative to the host (`rv-relative.jl:55-325`),
-    with perturbations from interior massive companions. A
-    `gaussian_process` raises NotImplementedError: it is not ported yet."""
+    with perturbations from interior massive companions, and an optional
+    gaussian_process(theta_obs) solved as StarAbsoluteRVObs's default
+    ("scan")."""
 
     def __init__(self, observations, variables=None, *, name,
                  trend_function=None, gaussian_process=None):
@@ -209,13 +286,15 @@ class PlanetRelativeRVObs(_BaseRVObs):
         return {"rv_model": rv, "epochs": self.table["epoch"]}
 
     def ln_like(self, ctx: PlanetObservationContext):
+        if self.gaussian_process is not None:
+            return self._gp_ln_like(ctx)
         resid, var = self._residual_and_variance(ctx)
         return torch.sum(gauss_logpdf(resid, torch.sqrt(var)), dim=-1)
 
     def pointwise_ln_like(self, ctx: PlanetObservationContext):
-        """Per-epoch log-likelihood, (C, n)."""
-        resid, var = self._residual_and_variance(ctx)
-        return gauss_logpdf(resid, torch.sqrt(var))
+        """Per-epoch log-likelihood, (C, n); the GP case uses the per-point
+        marginal N(0, K_ii + var_i)."""
+        return self._pointwise_ln_like(ctx)
 
 
 StarAbsoluteRVLikelihood = StarAbsoluteRVObs

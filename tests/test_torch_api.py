@@ -36,7 +36,8 @@ from octofitter_tpu_torch.model.initialization import starting_points_chain as s
 import chip_smoke
 
 # The names of APPENDIX_A that the port exports (27 before the discrete
-# slice, which added the last 8).
+# slice, which added the next 8; the RV-GP slice added the RV archive
+# loaders and radvel_posterior, the last 7).
 PORTED = [
     "Planet", "System", "UniformCircular", "Sine", "KDEDist", "theta_at_epoch_to_tperi",
     "ofti_linear_solve", "likelihoodname", "PlanetRelAstromObs", "PlanetRelAstromLikelihood",
@@ -46,7 +47,8 @@ PORTED = [
     "StarAbsoluteRVMarginLikelihood", "octofit", "octofit_pigeons", "octofit_rejection",
     "LogDensityModel", "Chains", "gaia_plx", "mjd2jd", "jd2mjd",
     "drawfrompriors", "sample_priors", "initialize", "startingpoints", "generate_from_params",
-    "describe", "savechain", "loadchain",
+    "describe", "savechain", "loadchain", "HARPS_RVBank_rvs", "HARPS_DR1_rvs", "HIRES_rvs",
+    "Lick_rvs", "CES_lc_rvs", "CES_vlc_rvs", "radvel_posterior",
 ]
 
 

@@ -249,10 +249,26 @@ def test_marginalized_rv_matches_numerical_integral(joint, points):
 
 
 def test_rv_gaussian_process_raises():
+    """Both RV likelihoods take a Gaussian process (they raised
+    NotImplementedError until the GP stack was ported), and a copy on a
+    subset of epochs keeps it with the other rows held out. What raises is
+    the celerite kernels' wrapper, which has no CPU path and no fallback:
+    on CPU tensors, and for epochs that require a gradient."""
+    from octofitter_tpu_torch.rv import celerite_cuda
+
     table = {"epoch": np.array([57000.0, 57100.0]), "rv": np.zeros(2), "σ_rv": np.ones(2)}
     for cls in (ot.StarAbsoluteRVObs, ot.PlanetRelativeRVObs):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            cls(table, name="rvs", gaussian_process=lambda theta_obs: None)
+        obs = cls(table, name="rvs", gaussian_process=lambda theta_obs: None)
+        assert obs.gaussian_process is not None and obs.gp_method == "scan"
+        part = obs.likeobj_from_epoch_subset([1])
+        assert part.gaussian_process is obs.gaussian_process and part.gp_method == "scan"
+        np.testing.assert_array_equal(part.held_out_table["epoch"], [57000.0])
+    x = torch.ones((2, 1), dtype=torch.float64)
+    t, y = torch.zeros(3, dtype=torch.float64), torch.zeros((2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        celerite_cuda.celerite_loglike_cuda(x, x, x, x, t, y, y)
+    with pytest.raises(ValueError, match="epochs"):
+        celerite_cuda.celerite_loglike_cuda(x, x, x, x, t.requires_grad_(True), y, y)
 
 
 @pytest.fixture(scope="module")
