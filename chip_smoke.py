@@ -11,7 +11,8 @@ non-zero:
 2. build: compiles the three kernel libraries (`kepler.cu`,
    `orbit_solve.cu` and the header `kepler.cuh` under
    `octofitter_tpu_torch/orbits/kernels/csrc/`, and
-   `octofitter_tpu_torch/rv/csrc/celerite.cu`) with nvcc, one process
+   `octofitter_tpu_torch/rv/csrc/celerite.cu` with its header
+   `celerite.cuh`) with nvcc, one process
    each, started together, into the git-ignored build directory; prints
    ptxas's register and spill lines;
 3. Kepler kernel vs twin: the kernel against its plain PyTorch twin on
@@ -128,7 +129,7 @@ non-zero:
    own error against float64, float64 within 1e-10) at (4096, 80) with one
    and two terms, (2^17, 80) and (8, 2048), with non-positive-definite
    rows, each timed (plain, kernel, kernel, plain) beside the dense route
-   by library calls; the associative method against the pair at (8, 2048)
+   by library calls and read from torch.profiler's kernel events; the associative method against the pair at (8, 2048)
    and a QuasiPeriodicKernel's dense `gp_loglike` at (4096, 80) against
    float64 on the CPU; then `octofit` with initialization at 4096 chains,
    ChEES, RVGP_ADAPTATION + RVGP_ITERATIONS, with the gates of 5, the
@@ -158,9 +159,12 @@ celerite pair, `celerite_fwd` and `celerite_bwd`, at (4096, 80) with one
 term, with its other shapes under `shapes` (the library time is the dense
 route: the dense matrix, `cholesky_ex` and `solve_triangular`, several
 calls; the bound counts the function's inputs and outputs, and each shape
-gives the saved array's traffic beside it as `saved_array_ms` and the
-forward's time without it), and the Laplace step of the RV-GP model under
-`rvgp_laplace`; the last is
+gives each kernel's own device time per launch from torch.profiler's
+kernel events as `device_us`, since at (4096, 80) the CUDA-event time is
+the host's cost per launch; the log gives the forward's checkpoint bytes
+and their time at the memory rate, computed, not measured; `occupancy`
+holds the kernels' rows, threads, shared memory and resident blocks per
+SM), and the Laplace step of the RV-GP model under `rvgp_laplace`; the last is
 `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -1841,7 +1845,8 @@ def _cel_check(label, dtype, out_k, out_p, ref=None):
 def celerite_kernel_phase(cc, cel) -> dict:
     """The pair against its plain version at CEL_SHAPES on the same inputs
     in both precisions, then timed in float32 (plain, kernel, kernel, plain)
-    beside the dense route by library calls."""
+    beside the dense route by library calls: {"shapes": a row per shape,
+    "occupancy": each kernel's launch at each shape}."""
     res = {}
     for B, n, J in CEL_SHAPES:
         label = _cel_label(B, n, J)
@@ -1852,14 +1857,14 @@ def celerite_kernel_phase(cc, cel) -> dict:
             coefs, t, y, var, gll = (x.to(dtype) for x in
                                      (torch.stack(coefs32), t32, y32, var32, gll32))
             coefs = list(coefs.unbind(0))
-            ll_k, saved = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
-            g_k = cc.celerite_backward_cuda(*coefs, t, saved, ll_k, gll)
+            ll_k, ckpt = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
+            g_k = cc.celerite_backward_cuda(*coefs, t, y, var, ckpt, ll_k, gll)
             xs = [x.clone().requires_grad_(True) for x in (*coefs, y, var)]
             ll_p = cel._celerite_plain(*xs[:4], t, *xs[4:])
             g_p = torch.autograd.grad(torch.where(torch.isfinite(ll_p), ll_p, 0.0) @ gll, xs)
             torch.cuda.synchronize()
             out[dtype] = ((ll_k, g_k), (ll_p.detach(), g_p))
-            del saved, xs, ll_p
+            del ckpt, xs, ll_p
         for dtype in (torch.float64, torch.float32):
             ref = out[torch.float64][1] if dtype == torch.float32 else None
             ll_err, g_err, ratio = _cel_check(label, dtype, *out[dtype], ref=ref)
@@ -1876,41 +1881,73 @@ def celerite_kernel_phase(cc, cel) -> dict:
             row[f"ll_err{key}"], row[f"grad_err{key}"], row[f"err_over_tol{key}"] = (
                 ll_err, g_err, ratio)
         del out
-        # timing, float32
+        # timing, float32: the forward as the gradient path launches it (with
+        # its checkpoints), by CUDA events and by the profiler's kernel events
         coefs, t, y, var, gll = coefs32, t32, y32, var32, gll32
-        ll, saved = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
+        ll, ckpt = cc.celerite_forward_cuda(*coefs, t, y, var, save=True)
         xs = [x.clone().requires_grad_(True) for x in (*coefs, y, var)]
         ll_p = cel._celerite_plain(*xs[:4], t, *xs[4:])
         ll_d = _dense_celerite_ll(*xs[:4], t, *xs[4:])
         n_plain = 1 if n > 256 else 3  # the plain loop at 2048 epochs takes ~0.6 s + 2 s
         fns = {
             "fwd": lambda: cc.celerite_forward_cuda(*coefs, t, y, var, save=True),
-            "fwd_nosave": lambda: cc.celerite_forward_cuda(*coefs, t, y, var, save=False),
             "plain_fwd": lambda: cel._celerite_plain(*coefs, t, y, var),
             "library_fwd": lambda: _dense_celerite_ll(*coefs, t, y, var),
-            "bwd": lambda: cc.celerite_backward_cuda(*coefs, t, saved, ll, gll),
+            "bwd": lambda: cc.celerite_backward_cuda(*coefs, t, y, var, ckpt, ll, gll),
             "plain_bwd": lambda: torch.autograd.grad(ll_p, xs, gll, retain_graph=True),
             "library_bwd": lambda: torch.autograd.grad(ll_d, xs, gll, retain_graph=True),
         }
         times = {k: [] for k in fns}
-        n_iter = lambda name: 50 if name in ("fwd", "fwd_nosave", "bwd") else n_plain  # noqa: E731
+        n_iter = lambda name: 50 if name in ("fwd", "bwd") else n_plain  # noqa: E731
         with torch.no_grad():
-            for name in ("plain_fwd", "fwd", "fwd_nosave", "fwd", "fwd_nosave", "plain_fwd",
-                         "library_fwd"):
+            for name in ("plain_fwd", "fwd", "fwd", "plain_fwd", "library_fwd"):
                 times[name].append(_time_ms(fns[name], n_iter(name)))
         for name in ("plain_bwd", "bwd", "bwd", "plain_bwd", "library_bwd"):
             times[name].append(_time_ms(fns[name], n_iter(name)))
         for k, v in times.items():
             row[k] = min(v)
-        log(f"timing celerite {label} float32: forward {row['fwd']:.4f} ms, "
-            f"{row['fwd_nosave']:.4f} without the saved array (plain "
+        row["device_us"] = _kernel_device_us(lambda: (fns["fwd"](), fns["bwd"]()))
+        log(f"timing celerite {label} float32: forward {row['fwd']:.4f} ms by CUDA events, "
+            f"{row['device_us'].get('fwd', math.nan):.2f} us by the profiler (plain "
             f"{row['plain_fwd']:.4f}, dense library route {row['library_fwd']:.4f}); backward "
-            f"{row['bwd']:.4f} ms (plain {row['plain_bwd']:.4f}, dense {row['library_bwd']:.4f}); "
-            f"runs {times}")
+            f"{row['bwd']:.4f} ms, {row['device_us'].get('bwd', math.nan):.2f} us (plain "
+            f"{row['plain_bwd']:.4f}, dense {row['library_bwd']:.4f}); runs {times}")
+        log(f"celerite {label} float32 checkpoints: {4 * ckpt.numel()} bytes, "
+            f"checkpoint_ms {celerite_checkpoint_ms(B, n, J):.5f} at the memory rate "
+            "(computed from the bytes, not measured)")
         res[label] = row
-        del ll_p, ll_d, xs, saved
+        del ll_p, ll_d, xs, ckpt
         torch.cuda.empty_cache()
-    return res
+    occupancy = {f"{_cel_label(B, n, J)} {part}": cc.occupancy(B, J, torch.float32, part == "bwd")
+                 for B, n, J in CEL_SHAPES for part in ("fwd", "bwd")}
+    log(f"celerite kernels per block and SM, float32: {occupancy}")
+    return {"shapes": res, "occupancy": occupancy}
+
+
+def _device_events(fn, n):
+    """(name, launches, total device us) of every device operation that `n`
+    calls of `fn` make under torch.profiler, after one call outside it. It
+    traces the device only: gathering the host's op events as well took
+    45 s for one Laplace step (`torch.func` nests many host ops in each
+    device op) on the H100 machine's host."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # `device_time_total` in newer PyTorch, `cuda_time_total` before it
+    return [(e.key, e.count, e.device_time_total if hasattr(e, "device_time_total")
+             else e.cuda_time_total) for e in rows]
+
+
+def _kernel_device_us(fn, n_iter=20) -> dict:
+    """Each celerite kernel's own device time per launch, in us, over
+    `n_iter` calls of `fn`, keyed "fwd" and "bwd"; empty where the
+    profiler shows none."""
+    return {("fwd" if "fwd" in key else "bwd"): total / count
+            for key, count, total in _device_events(fn, n_iter) if "celerite" in key}
 
 
 def celerite_bound(B, n, J, part) -> tuple[float, str]:
@@ -1919,8 +1956,9 @@ def celerite_bound(B, n, J, part) -> tuple[float, str]:
     backward: the same inputs and the cotangent read, the six gradients
     written), and its arithmetic (per row and epoch about 12 J + 7 (2J)^2
     operations forward, 12 J + 20 (2J)^2 backward, each exp and sincos
-    one) at the float32 peak. The array the forward saves for the backward
-    is this design's choice, not the function's: `celerite_saved_ms`."""
+    one) at the float32 peak. The checkpoints the forward writes for the
+    backward are this design's choice, not the function's:
+    `celerite_checkpoint_ms`."""
     inputs = 4 * B * J + n + 2 * B * n
     if part == "fwd":
         words = inputs + B
@@ -1931,30 +1969,22 @@ def celerite_bound(B, n, J, part) -> tuple[float, str]:
     return bound_ms(4 * words, ops, torch.float32)
 
 
-def celerite_saved_ms(B, n, J) -> float:
-    """The time the saved array's bytes take at the memory rate in float32,
-    once written (forward) or once read (backward)."""
-    from octofitter_tpu_torch.rv.celerite_cuda import saved_fields
+def celerite_checkpoint_ms(B, n, J) -> float:
+    """The time the forward's checkpoints take at the memory rate in
+    float32, once written (forward) or once read (backward)."""
+    from octofitter_tpu_torch.rv.celerite_cuda import checkpoint_shape, chunk_epochs
 
-    return bound_ms(4 * n * saved_fields(J) * B, 0, torch.float32)[0]
+    return bound_ms(4 * math.prod(checkpoint_shape(B, n, J, chunk_epochs(J, torch.float32, B))), 0,
+                    torch.float32)[0]
 
 
 def _device_ops_per_call(fn, n=3):
-    """Device operations (kernels, copies, fills) per call of `fn` over `n`
-    calls under torch.profiler, or None where the profiler shows none. It
-    traces the device only: gathering the host's op events as well took
-    45 s for one Laplace step (`torch.func` nests many host ops in each
-    device op) on the H100 machine's host."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    count = sum(e.count for e in rows)
-    return count / n if count else None
+    """(operations, busy us): device operations (kernels, copies, fills) per
+    call of `fn` over `n` calls, and the sum of their device times per call;
+    (None, None) where the profiler shows none."""
+    rows = _device_events(fn, n)
+    count = sum(r[1] for r in rows)
+    return (count / n, sum(r[2] for r in rows) / n) if count else (None, None)
 
 
 # the model's evaluation near the truth (S0 ~ 5 against variances ~2.5, well
@@ -1989,13 +2019,17 @@ def rvgp_evaluation_phase(ot, model, ref, cc) -> dict:
         dev, host = _time_both(fn, n_iter)
         prev = res.get(name, (math.inf, math.inf))
         res[name] = (min(prev[0], dev), min(prev[1], host))
-    ops = {name: _device_ops_per_call(fn) for name, fn in (("kernel", kernel), ("plain", plain))}
+    prof = {name: _device_ops_per_call(fn) for name, fn in (("kernel", kernel), ("plain", plain))}
+    ops = {name: v[0] for name, v in prof.items()}
+    busy = {name: v[1] for name, v in prof.items()}
     for name in ("plain", "kernel"):
         log(f"  {name} path: {res[name][1] * 1e3:.1f} us per evaluation on the host clock, "
             f"{res[name][0] * 1e3:.1f} us by CUDA events, "
-            f"{ops[name] if ops[name] is not None else 'not measured'} device ops per evaluation")
+            f"{ops[name] if ops[name] is not None else 'not measured'} device ops and "
+            f"{f'{busy[name]:.1f}' if busy[name] is not None else 'not measured'} us of device "
+            "time per evaluation")
     return {"us": {k: v[1] * 1e3 for k, v in res.items()},
-            "device_us": {k: v[0] * 1e3 for k, v in res.items()}, "ops": ops}
+            "device_us": {k: v[0] * 1e3 for k, v in res.items()}, "ops": ops, "busy_us": busy}
 
 
 RVGP_QP_TOL = (2e-3, 2e-2)  # float32 Cholesky of 80 x 80: ll, gradient rows
@@ -2087,7 +2121,7 @@ def rvgp_laplace_phase(kk, model, theta) -> dict:
     launches = {"kepler_solve": kk.launches - kepler0, "celerite_fwd": cc.launches_fwd - fwd0,
                 "celerite_bwd": cc.launches_bwd - bwd0}
     t_ops = time.perf_counter()
-    ops = _device_ops_per_call(lambda: laplace(model, x), n=1)
+    ops, _ = _device_ops_per_call(lambda: laplace(model, x), n=1)
     log(f"  the Laplace step's device-op count took {time.perf_counter() - t_ops:.2f} s")
     log(f"rv-gp Laplace step (D = {model.D}): {min(seconds):.4f} s (runs {seconds}), "
         f"{ops if ops is not None else 'not measured'} device ops, launches {launches}")
@@ -2361,17 +2395,15 @@ def main() -> int:
     main_label = _cel_label(CHAINS, RVGP_EPOCHS, 1)
     for part in ("fwd", "bwd"):
         shapes = {}
-        for label, row in rvgp["celerite"].items():
+        for label, row in rvgp["celerite"]["shapes"].items():
             bnd = celerite_bound(row["B"], row["n"], row["J"], part)
             shapes[label] = {
-                "ms": row[part], "plain_ms": row[f"plain_{part}"], "bound_ms": bnd[0],
+                "ms": row[part], "device_us": row["device_us"].get(part),
+                "plain_ms": row[f"plain_{part}"], "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": row[f"library_{part}"],
-                "saved_array_ms": celerite_saved_ms(row["B"], row["n"], row["J"]),
                 "ll_err": row["ll_err"], "grad_err": row["grad_err"],
                 "err_over_tol": row["err_over_tol"], "ll_err_f64": row["ll_err_f64"],
                 "grad_err_f64": row["grad_err_f64"]}
-            if part == "fwd":
-                shapes[label]["ms_without_saved_array"] = row["fwd_nosave"]
         main_row = shapes[main_label]
         kernels.append({
             "name": f"celerite_{part}",
@@ -2385,10 +2417,13 @@ def main() -> int:
             "error_measure": ("log-likelihood, worst row, relative to max(|ll|, 1)" if part == "fwd"
                               else "gradient, worst row, relative to its largest entry"),
             "ms": main_row["ms"],
+            "device_us": main_row["device_us"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "occupancy": {k: v for k, v in rvgp["celerite"]["occupancy"].items()
+                          if k.endswith(part)},
             "library_calls": "celerite dense matrix + torch.linalg.cholesky_ex + "
                              "torch.linalg.solve_triangular" + (" (autograd)" if part == "bwd" else ""),
             "shape": main_label,
@@ -2396,6 +2431,7 @@ def main() -> int:
             "launch_shapes": {str(sh): k for sh, k in rvgp["celerite_shapes"].items()},
             "rvgp_evaluation_us": rvgp["evaluation"]["us"],
             "rvgp_evaluation_device_ops": rvgp["evaluation"]["ops"],
+            "rvgp_evaluation_busy_us": rvgp["evaluation"]["busy_us"],
             "rvgp_laplace": rvgp["laplace"],
         })
     kernels[-1]["associative"] = rvgp["extra"]["assoc"]

@@ -14,7 +14,9 @@ variances are (C, n); the epochs (n,) are shared by every row.
 `celerite_loglike` runs the celerite Cholesky recursion (Foreman-Mackey
 et al. 2017), which is sequential over the epochs. On a CUDA tensor it
 launches a hand-written forward and backward kernel pair
-(`csrc/celerite.cu` through `celerite_cuda.py`, one thread per row); on
+(`csrc/celerite.cu` through `celerite_cuda.py`: tiles of rows, chunks of
+epochs staged in shared memory, a backward that recomputes each chunk from
+a checkpoint); on
 the CPU, or where the caller asks for composed torch ops (`fused=False`,
 for a second derivative or a `torch.func` transform), it runs
 `_celerite_plain`, a Python loop over the epochs of batched torch ops,

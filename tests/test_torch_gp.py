@@ -10,8 +10,17 @@ JAX, where only the test marked `cuda` (the celerite kernel pair against
 its plain version) is meant to run:
 
     python -m pytest --noconftest -q tests/test_torch_gp.py -m cuda
+
+The kernels' schedule (chunks of epochs, checkpoints, the backward's
+recomputation) and their step arithmetic (`rv/csrc/celerite.cuh`) are also
+built for the host with g++ (`rv/csrc/celerite_host.cpp`) and held to the
+plain version here on the CPU; those tests skip where g++ is missing.
 """
 
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -21,6 +30,7 @@ import torch
 
 from octofitter_tpu_torch.interop import gp_kernel_from_jax
 from octofitter_tpu_torch.rv import celerite as cel
+from octofitter_tpu_torch.rv import celerite_cuda as cc
 from octofitter_tpu_torch.rv import kernels as ker
 
 RTOL = 1e-10
@@ -283,44 +293,163 @@ def _worst_rows(outs, refs, ok):
     return errs
 
 
+def _kernel_pair_inputs(rng, B, n, J, edge_rows):
+    """Coefficients (B, J) over the RV-GP model's prior ranges (an SHOTerm,
+    then alternately a RealTerm and another SHOTerm), sorted relative epochs
+    (n,) over 183 days, residuals and variances (B, n), and a cotangent (B,);
+    the rows `edge_rows` made non-positive-definite (first term a = 10, b =
+    50; variances 1e-4)."""
+    terms = []
+    for j in range(J):
+        if j % 2 == 0:
+            S0 = np.exp(rng.uniform(np.log(0.1), np.log(100.0), B))
+            w0 = np.exp(rng.uniform(np.log(0.01), np.log(2.0), B))
+            Q = rng.uniform(0.8, 5.0, B)
+            eta = np.sqrt(4 * Q * Q - 1)
+            a, c = S0 * w0 * Q, w0 / (2 * Q)
+            terms.append((a, a / eta, c, c * eta))
+        else:
+            terms.append((rng.uniform(0.1, 30.0, B), np.zeros(B), rng.uniform(0.01, 1.0, B),
+                          np.zeros(B)))
+    coefs = [np.stack(x, axis=-1) for x in zip(*terms)]
+    coefs[0][edge_rows, 0], coefs[1][edge_rows, 0] = 10.0, 50.0
+    t = np.sort(rng.uniform(0.0, 183.0, n))
+    t -= t[0]
+    y = 3.0 * rng.standard_normal((B, n))
+    var = rng.uniform(1.0, 6.0, (B, n))
+    var[edge_rows] = 1e-4
+    return coefs, t, y, var, rng.uniform(0.5, 1.5, B)
+
+
+@pytest.fixture(scope="module")
+def host_schedule(tmp_path_factory):
+    """`rv/csrc/celerite_host.cpp` (the kernels' schedule and `celerite.cuh`'s
+    arithmetic on the host) built with g++ and loaded; skips without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host schedule of the celerite kernels")
+    source = Path(cc.SOURCE).with_name("celerite_host.cpp")
+    out = tmp_path_factory.mktemp("celerite_host") / "libcelerite_host.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(out), str(source)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.celerite_host_fwd_f64.argtypes = [ptr] * 9 + [i32, i64, i64, i32]
+    lib.celerite_host_bwd_f64.argtypes = [ptr] * 16 + [i32, i64, i64, i32]
+    lib.celerite_host_checkpoint_words.argtypes = [i32]
+    return lib
+
+
+def _host_pair(lib, coefs, t, y, var, gll, chunk):
+    """The host schedule's forward (with checkpoints) and backward: ll, the
+    six gradients and the checkpoints."""
+    B, J = coefs[0].shape
+    n = t.shape[0]
+    ins = [torch.as_tensor(x, dtype=torch.float64).contiguous() for x in (*coefs, t, y, var)]
+    ll = torch.empty(B, dtype=torch.float64)
+    ckpt = torch.full(cc.checkpoint_shape(B, n, J, chunk), torch.nan, dtype=torch.float64)
+    ck = ckpt.data_ptr() if ckpt.numel() else None
+    assert lib.celerite_host_fwd_f64(*(x.data_ptr() for x in ins), ll.data_ptr(), ck,
+                                     J, B, n, chunk) == 0
+    grads = [torch.empty((B, J), dtype=torch.float64) for _ in range(4)]
+    grads += [torch.empty((B, n), dtype=torch.float64) for _ in range(2)]
+    g = torch.as_tensor(gll, dtype=torch.float64)
+    assert lib.celerite_host_bwd_f64(*(x.data_ptr() for x in ins), ck, ll.data_ptr(),
+                                     g.data_ptr(), *(x.data_ptr() for x in grads),
+                                     J, B, n, chunk) == 0
+    return ll, grads, ckpt
+
+
+@pytest.mark.parametrize("J", [1, 2, 3, 4])
+def test_celerite_host_schedule_matches_plain(host_schedule, J):
+    """The kernels' chunked forward and checkpoint-recompute backward, built
+    for the host, against the plain version and autograd through it in
+    float64 within 1e-10 (ll per row against max(|ll|, 1), each gradient per
+    row against its largest entry and 1), at the kernels' own float64 chunk
+    lengths C (for few and for many rows) and at C = 2, with n = 1 and n below, at and across C; one row
+    non-positive-definite at the first epoch and one at the last (the first
+    and the last chunk), which give -inf and zero gradients in both. The
+    checkpoints fill `checkpoint_shape` (none where n <= C), whose record is
+    the header's."""
+    assert host_schedule.celerite_host_checkpoint_words(J) == cc.checkpoint_words(J)
+    rng = np.random.default_rng(10 + J)
+    B = 5
+    chunks = {cc.chunk_epochs(J, torch.float64, B) for B in (1, cc.MANY_ROWS)}
+    for chunk in sorted(chunks | {2}):
+        for n in sorted({1, max(chunk - 1, 1), chunk, chunk + 1, 3 * chunk - 1}):
+            coefs, t, y, var, gll = _kernel_pair_inputs(rng, B, n, J, [])
+            asum = coefs[0].sum(axis=-1)
+            var[1, 0] = -2.0 * asum[1] - 1.0  # D_0 < 0
+            var[3, n - 1] = -2.0 * asum[3] - 1.0
+            ll, grads, ckpt = _host_pair(host_schedule, coefs, t, y, var, gll, chunk)
+            assert ckpt.shape == (max(-(-n // chunk) - 1, 0), cc.checkpoint_words(J), B)
+            assert not torch.isnan(ckpt).any()
+            xs = [torch.as_tensor(x).requires_grad_(True) for x in (*coefs, y, var)]
+            ll_p = cel._celerite_plain(*xs[:4], torch.as_tensor(t), *xs[4:])
+            ok = torch.isfinite(ll_p)
+            assert torch.equal(ok, torch.isfinite(ll)) and ok.tolist() == [True, False, True, False, True]
+            g_p = torch.autograd.grad(torch.where(ok, ll_p, 0.0) @ torch.as_tensor(gll), xs)
+            for g in grads:
+                assert torch.isfinite(g).all() and (g[~ok] == 0).all()
+            errs = _worst_rows([ll[:, None], *grads], [ll_p[:, None], *g_p], ok)
+            assert max(errs) <= RTOL, (chunk, n, errs)
+
+
+def test_checkpoint_shape_is_one_record_per_chunk_but_the_last():
+    """The forward's checkpoint allocation: ceil(n / C) - 1 records of
+    m(m+1)/2 + 2m + 2 words per row (none where n <= C), at most ceil(n / C)
+    records; the default chunk lengths are whole 16-byte copies, and no
+    longer for many rows than for few."""
+    for J, words in ((1, 9), (2, 20), (3, 35), (4, 54)):
+        assert cc.checkpoint_words(J) == words
+        for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+            few, many = (cc.chunk_epochs(J, dtype, B) for B in (4096, cc.MANY_ROWS))
+            assert many <= few
+            for B, C in ((4096, few), (cc.MANY_ROWS, many)):
+                assert C > 0 and (C * size) % 16 == 0
+                for n, records in ((1, 0), (C, 0), (C + 1, 1), (80, -(-80 // C) - 1),
+                                   (2048, -(-2048 // C) - 1)):
+                    shape = cc.checkpoint_shape(B, n, J, C)
+                    assert shape == (records, words, B) and records <= -(-n // C)
+
+
 @pytest.mark.cuda
 def test_celerite_kernel_pair_matches_plain():
     """On the card: the CUDA forward and backward against the plain version
-    and autograd through it, on SHOTerm (J = 1) and SHOTerm + RealTerm
-    (J = 2) coefficients over the RV-GP model's prior ranges at (300, 80),
-    with 3 non-positive-definite rows, which must give -inf and zero
-    gradients in both. Float64 within 1e-10 (log-likelihood and every
-    gradient, the worst row against the row's largest entry); float32 within
-    4 times the plain version's own float32 error against float64 on the
-    same inputs, and at least 1e-5 (ll) and 1e-4 (gradients), the rule of
-    `chip_smoke.py`. Each call launches each kernel once."""
+    and autograd through it, with coefficients over the RV-GP model's prior
+    ranges: J = 1 and 2 at (300, 80) (300 rows, no multiple of a block's 16;
+    80 epochs, no multiple of the float32 chunk of 32), J = 3 at (301, 37)
+    and J = 4 at (77, 37) (37 epochs, odd, so most rows do not start on a
+    16-byte boundary), J = 1 at (45, 5) (one chunk, no checkpoint), and the
+    many-rows chunks (8 epochs in float32, 4 in float64) at (16,421, 37)
+    and (33,797, 21), whose tiles on an H100's SMs are 32 rows, and 128
+    (forward) and 64 (backward) rows, each with a partial last tile; with
+    3 non-positive-definite rows at the start, one inside a later tile and
+    one in the last tile, which must give -inf and zero gradients in both.
+    Float64 within 1e-10
+    (log-likelihood and every gradient, the worst row against the row's
+    largest entry); float32 within 4 times the plain version's own float32
+    error against float64 on the same inputs, and at least 1e-5 (ll) and
+    1e-4 (gradients), the rule of `chip_smoke.py`. Each call launches each
+    kernel once, and the forward allocates `checkpoint_shape`; the tiles
+    run 16 to 128 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from octofitter_tpu_torch.rv import celerite_cuda as cc
 
     rng = np.random.default_rng(0)
-    B, n = 300, 80
-    for J in (1, 2):
-        S0, w0 = np.exp(rng.uniform(np.log(0.1), np.log(100.0), B)), np.exp(
-            rng.uniform(np.log(0.01), np.log(2.0), B))
-        Q = rng.uniform(0.8, 5.0, B)
-        eta = np.sqrt(4 * Q * Q - 1)
-        a, c = S0 * w0 * Q, w0 / (2 * Q)
-        terms = [(a, a / eta, c, c * eta)]
-        if J == 2:
-            terms.append((rng.uniform(0.1, 30.0, B), np.zeros(B), rng.uniform(0.01, 1.0, B),
-                          np.zeros(B)))
-        coefs = [np.stack(x, axis=-1) for x in zip(*terms)]
-        coefs[0][:3, 0], coefs[1][:3, 0] = 10.0, 50.0
-        t = np.sort(rng.uniform(0.0, 183.0, n))
-        t -= t[0]
-        y = 3.0 * rng.standard_normal((B, n))
-        var = rng.uniform(1.0, 6.0, (B, n))
-        var[:3] = 1e-4
+    tile_rows = set()
+    for B, n, J in ((300, 80, 1), (300, 80, 2), (301, 37, 3), (77, 37, 4), (45, 5, 1),
+                    (16421, 37, 1), (33797, 21, 1)):
+        edge = [0, 1, 2, min(B - 1, 21), B - 2]
+        coefs, t, y, var, _ = _kernel_pair_inputs(rng, B, n, J, edge)
         results = {}
         for dtype in (torch.float64, torch.float32):
             to = lambda x: torch.as_tensor(x, dtype=dtype, device="cuda")  # noqa: E731
             xs = [to(x).requires_grad_(True) for x in (*coefs, y, var)]
+            _, ckpt = cc.celerite_forward_cuda(*(x.detach() for x in xs[:4]), to(t),
+                                               *(x.detach() for x in xs[4:]), save=True)
+            assert ckpt.shape == cc.checkpoint_shape(B, n, J, cc.chunk_epochs(J, dtype, B))
+            tile_rows |= {cc.occupancy(B, J, dtype, bwd)["rows_per_block"] for bwd in (0, 1)}
             before = (cc.launches_fwd, cc.launches_bwd)
             ll_k = cc.celerite_loglike_cuda(*xs[:4], to(t), *xs[4:])
             g_k = torch.autograd.grad(ll_k.where(torch.isfinite(ll_k), 0.0).sum(), xs)
@@ -328,15 +457,16 @@ def test_celerite_kernel_pair_matches_plain():
             ll_p = cel._celerite_plain(*xs[:4], to(t), *xs[4:])
             g_p = torch.autograd.grad(ll_p.where(torch.isfinite(ll_p), 0.0).sum(), xs)
             ok = torch.isfinite(ll_p)
-            assert torch.equal(ok, torch.isfinite(ll_k)) and int((~ok).sum()) >= 3
+            assert torch.equal(ok, torch.isfinite(ll_k)) and int((~ok).sum()) >= len(set(edge))
             for gk in g_k:
                 assert torch.isfinite(gk).all() and (gk[~ok] == 0).all()
             results[dtype] = ([ll_k[:, None], *g_k], [ll_p[:, None], *g_p], ok)
         k64, p64, ok = results[torch.float64]
-        assert max(_worst_rows(k64, p64, ok)) <= 1e-10
+        assert max(_worst_rows(k64, p64, ok)) <= 1e-10, (B, n, J)
         k32, p32, ok32 = results[torch.float32]
         assert torch.equal(ok32, ok)
         errs = _worst_rows(k32, p32, ok)
         own = _worst_rows(p32, p64, ok)
         for i, (err, o) in enumerate(zip(errs, own)):
-            assert err <= max(4.0 * o, 1e-5 if i == 0 else 1e-4), (J, i, err, o)
+            assert err <= max(4.0 * o, 1e-5 if i == 0 else 1e-4), (B, n, J, i, err, o)
+    assert {16, 32, 128} <= tile_rows, tile_rows
