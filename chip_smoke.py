@@ -31,8 +31,8 @@ non-zero:
 5. main path: the benchmark's headline model (`bench.py:build_model`:
    quick-start relative astrometry, 12 epochs, 2 mas noise, seed 0) in
    float32 on the GPU, checked against a float64 CPU model, then
-   `octofit` with initialization at 4096 chains, 400 adaptation steps
-   and 200 draws (the bench's 700 and 3000, cut to keep the whole script
+   `octofit` with initialization at 4096 chains, ADAPTATION steps and
+   ITERATIONS draws (the bench's 700 and 3000, cut to keep the whole script
    inside its time limit); checks finite draws, max split-R-hat < 1.05
    by the device diagnostics, the posterior median of b_a within 5 sd of
    the true 7.0, and that all three kernels were launched (the standalone
@@ -47,20 +47,20 @@ non-zero:
    through the fused kernels and through the composed path, in turns,
    with CUDA events and the host clock;
 8. NUTS and HMC: `octofit(sampler="nuts")` on the headline model that 5
-   initialized, 32 chains, 100 adaptation steps + 50 draws, max_depth 8,
-   float32, each chain adapting its own step size and dense metric; prints
+   initialized, 32 chains, 100 adaptation steps + 50 draws, max_depth
+   NUTS_MAX_DEPTH, float32, each chain adapting its own step size and dense metric; prints
    the batched evaluations per transition beside the mean leaves per chain
    (the cost of the lockstep); gates: max split-R-hat < 1.05 by the device
    diagnostics, finite draws, the medians of b_a and b_e within 5 sd of the
    truth, the fused pair launched on every evaluation; then a short
-   `sampler="hmc"` run (32 chains, 50 + 50, max_depth 4) with finite draws and
+   `sampler="hmc"` run (32 chains, HMC_ADAPTATION + HMC_ITERATIONS, max_depth 4) with finite draws and
    acceptance in (0, 1];
 9. joint path: `examples/02_joint_astrom_pma_rv.py`'s model (relative
    astrometry, HGCA with N_ave = 5, zero-point-marginalized RV; 70 epochs,
    D = 15), its data made from seed 0 with the port's orbitsolve on the
    CPU in float64, in float32 on the GPU, checked against a float64 CPU
-   model, then `octofit` as in 5 with the same gates at 300 adaptation
-   steps + 150 draws, the posterior
+   model, then `octofit` as in 5 with the same gates at JOINT_ADAPTATION
+   steps + JOINT_ITERATIONS draws, the posterior
    medians of b_mass and b_a within 5 sd of 12 Mjup and 9 AU, and the
    Kepler kernel held to its twin at the shapes this run launched it with;
 10. partial-arc parallel tempering (`bench.py:218-296`): the headline
@@ -79,7 +79,7 @@ non-zero:
    this run launched it with;
 11. PT with the NUTS explorer: `octofit_pigeons` on the partial-arc model
    that 10 initialized, the same ladder at 256 walkers, explorer="nuts"
-   with explorer_max_depth 8, 2 rounds; gates: finite draws, log-evidence
+   with explorer_max_depth 8, PT_NUTS_ROUNDS rounds; gates: finite draws, log-evidence
    and barriers, every rung's explorer acceptance in (0, 1], the fused pair
    on every annealed evaluation;
 12. OFTI rejection (`examples/09_ofti_rejection.py`): the model with the
@@ -136,7 +136,45 @@ non-zero:
    celerite pair and the standalone Kepler kernel launched on every
    gradient evaluation, the medians of b_mass and b_a within 5 sd of 1.2
    Mjup and 0.25 AU, and the Kepler kernel held to its twin at every shape
-   the fit launched it with. Every phase from 14 on prints its seconds.
+   the fit launched it with. Every phase from 14 on prints its seconds;
+19. the other orbit bases: one float64 value-and-gradient at 4096 prior
+   draws of the headline's relative astrometry on each of
+   AbsoluteVisual{KepOrbit}, CartesianOrbit, Visual{FixedPosition} and
+   Hyperbolic{KepOrbit}, on the card and on the CPU, held to each other
+   (`hold_values_and_gradients`); the standalone Kepler kernel launched
+   once where the basis solves Kepler's equation, the hyperbolic solve on
+   the card;
+20. the Hipparcos path (`docs/hipparcos.md`), float64 on AbsoluteVisual{KepOrbit}
+   over a synthetic 120-abscissa IAD, `octofit` with initialization (the
+   tutorial's guess, INIT_OPT_STEPS Adam steps) at 4096 chains: the
+   tutorial's straight-line fit (D = 5, HIP_LINE_ADAPTATION +
+   HIP_LINE_ITERATIONS) with the gates of 5, the Kepler kernel on every
+   evaluation and the tutorial's catalog test (|pull| < 3 on plx, pmra,
+   pmdec); then its companion-mass fit with the tutorial's 14
+   relative-astrometry epochs (D = 16, HIP_ADAPTATION + HIP_ITERATIONS),
+   the same gates but R-hat reported, not gated (the tutorial's short arc
+   does not mix at this length, in the JAX package either; PERF.md), and
+   the card's evaluation at its last draws held to the CPU's; then the
+   Kepler kernel held to its twin, in float64, at the shapes both fits
+   launched it with;
+21. the HGCA linear-fit path: `HGCAObs` (include_iad=True) over the IAD and
+   a 60-transit GOST scan law with the headline planet (D = 14) and its 12
+   epochs, its catalog row made by `generate_from_params` at 30 Mjup on the
+   CPU in float64; float32 on the card checked against a float64 CPU
+   model, `octofit` with initialization at 4096 chains, HGCA_ADAPTATION +
+   HGCA_ITERATIONS, with the gates of 5 (the fused pair on every gradient
+   evaluation) and the medians of b_mass and b_a within 5 sd of the truth;
+   then one float64 evaluation of the same model on AbsoluteVisual{KepOrbit}
+   held to the CPU's;
+22. the Gaia DR4 path at 620 epochs (Gaia BH3's count): on the Visual and
+   the AbsoluteVisual branch, with and without `primary_star_perturbation`,
+   one float64 value-and-gradient at 4096 prior draws held to the CPU's;
+   then the Kepler kernel held to its twin at the shapes 19, 21 and 22
+   launched it with, and the fused pair against its plain versions at the
+   HGCA fit's (4096, 192) in float32 and at (4096, 620) in float64. Each
+   new path prints its launches, its microseconds per evaluation on the
+   host clock and by CUDA events, and its device operations and device time
+   per evaluation.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -164,12 +202,18 @@ kernel events as `device_us`, since at (4096, 80) the CUDA-event time is
 the host's cost per launch; the log gives the forward's checkpoint bytes
 and their time at the memory rate, computed, not measured; `occupancy`
 holds the kernels' rows, threads, shared memory and resident blocks per
-SM), and the Laplace step of the RV-GP model under `rvgp_laplace`; the last is
-`{"ok": true, "device": {...}}`. Imports no JAX.
+SM), and the Laplace step of the RV-GP model under `rvgp_laplace`; every
+kernel carries the launches of 19-22 (`bases_launches`, `hip_launches`,
+`hgca_launches`, `hgca_absolute_launches`, `dr4_launches`), the Kepler
+kernel its rows at the Hipparcos fit's shape (`hip_*`, float64) and at the
+other new paths' shapes (`absolute_shapes`), the fused pair its rows at the
+HGCA fit's shape (`hgca_*`) and at the DR4 evaluations' (`dr4_*`, float64);
+the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -190,12 +234,12 @@ JOINT_EPOCHS = 70
 JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
 # the headline and joint fits' adaptation and draws (the bench's 700 +
 # 3000), cut to keep the whole script inside its time limit
-CHAINS, ADAPTATION, ITERATIONS = 4096, 400, 200
-JOINT_ADAPTATION, JOINT_ITERATIONS = 300, 150
+CHAINS, ADAPTATION, ITERATIONS = 4096, 200, 100
+JOINT_ADAPTATION, JOINT_ITERATIONS = 200, 100
 # NUTS and jittered HMC (`octofit(sampler="nuts" | "hmc")`) on the headline
 # model the ChEES phase initialized: every chain adapts its own step size
 # and dense metric, all chains step in lockstep
-NUTS_CHAINS, NUTS_ADAPTATION, NUTS_ITERATIONS, NUTS_MAX_DEPTH = 32, 100, 50, 8
+NUTS_CHAINS, NUTS_ADAPTATION, NUTS_ITERATIONS, NUTS_MAX_DEPTH = 32, 100, 50, 6
 HMC_ADAPTATION, HMC_ITERATIONS, HMC_MAX_DEPTH = 50, 50, 4
 # the partial-arc parallel-tempering fit (`bench.py:218-296`): the
 # headline model with its 12 epochs on a 600-day arc, sampled with the
@@ -229,7 +273,7 @@ PT_NUTS_CHAINS = PT_CHAINS // PA_KWARGS["n_walkers"] * PT_NUTS_KWARGS["n_walkers
 # Gibbs mode. The cap case: the outlier model at 12 epochs, K = 4096
 # combinations, the most that are marginalized, at CAP_CHAINS chains.
 CAL_SCALE = 1.2
-CAL_ADAPTATION, CAL_ITERATIONS = 300, 150
+CAL_ADAPTATION, CAL_ITERATIONS = 150, 75
 OUTLIER_EPOCHS, OUTLIER_INDEX, OUTLIER_SHIFT = 13, 5, (60.0, -40.0)
 # Gibbs-within-HMC adapts each chain's dense metric in Stan's windows, which
 # below 150 warmup steps are one window over the middle 75% of the warmup:
@@ -244,7 +288,7 @@ CAP_EPOCHS, CAP_CHAINS = 12, 256
 RVGP_TRUE = dict(a=0.25, e=0.15, omega=0.8, tp=57000.0, M=1.0)
 RVGP_MASS = 1.2
 RVGP_EPOCHS = 80
-RVGP_ADAPTATION, RVGP_ITERATIONS = 400, 200
+RVGP_ADAPTATION, RVGP_ITERATIONS = 200, 100
 
 # the OFTI workflow (`examples/09_ofti_rejection.py`): 8 epochs of relative
 # astrometry, the Thiele-Innes constants marginalized analytically, sampled
@@ -977,11 +1021,14 @@ def _launches(kk, osk) -> dict:
             "celerite_bwd": cc.launches_bwd}
 
 
-def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict:
-    """`octofit` with initialization on `model`, with every launch count
+def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
+              init_kwargs=None, rhat_gate=True) -> dict:
+    """`octofit` with initialization on `model` (`initialize` first with
+    `init_kwargs` where given, e.g. a guess), with every launch count
     set to 0 just before and read just after, scored by the device
-    diagnostics on the draws as the sampler holds them (float32). Checks
-    what every path must show: finite draws, max split-R-hat < 1.05, the
+    diagnostics on the draws as the sampler holds them. Checks
+    what every path must show: finite draws, max split-R-hat < 1.05 (where
+    `rhat_gate`; otherwise printed by parameter), the
     standalone Kepler kernel launched (by the Laplace step) and, where a
     planet has a Kep or Visual orbit, the fused pair launched on every
     batched gradient evaluation; a model without one solves its orbits
@@ -993,6 +1040,8 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(kk, osk)
     t0 = time.perf_counter()
+    if init_kwargs is not None:
+        model.initialize(gen, verbosity=1, **init_kwargs)
     chain = ot.octofit(model, chains=chains, adaptation=adaptation,
                        iterations=iterations, generator=gen, verbosity=1)
     torch.cuda.synchronize()
@@ -1011,7 +1060,8 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
     t_diag = time.perf_counter() - t_diag
     k_min = int(np.nanargmin(ess))
     ess_min, rhat_max = float(ess[k_min]), float(np.nanmax(rhat))
-    log(f"{label}: {chains} chains, {adaptation} adaptation + {iterations} draws, float32")
+    log(f"{label}: {chains} chains, {adaptation} adaptation + {iterations} draws, "
+        f"{str(model.dtype).removeprefix('torch.')}")
     log(f"  init {t_init:.2f} s, sampling {t_sampling:.2f} s, device diagnostics {t_diag:.2f} s")
     log(f"  leapfrog steps {n_evals - 1}, batched gradient evaluations {n_evals}, "
         f"{t_sampling / n_evals * 1e6:.1f} us each "
@@ -1033,7 +1083,9 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations) -> dict
                              f"{n_evals} gradient evaluations")
     if not bool(np.isfinite(x).all()):
         raise AssertionError(f"{label}: non-finite draws")
-    if not rhat_max < 1.05:
+    log(f"  split-R-hat by parameter{'' if rhat_gate else ' (reported, not gated)'}: "
+        f"{ {n: round(float(r), 4) for n, r in zip(names, rhat)} }")
+    if rhat_gate and not rhat_max < 1.05:
         raise AssertionError(f"{label}: max split-R-hat {rhat_max} >= 1.05")
     return {"launches": launches, "kepler_shapes": kepler_shapes, "model": model,
             "chain": chain, "x": x, "n_evals": n_evals, "t_sampling": t_sampling}
@@ -1604,18 +1656,19 @@ def diagnostics_phase(ot, paths) -> dict:
     return res
 
 
-def kepler_path_phase(kk, kepler_mod, shapes) -> dict:
+def kepler_path_phase(kk, kepler_mod, shapes, dtypes=(torch.float32, torch.float64)) -> dict:
     """The standalone Kepler kernel against its twin at every shape the
     main path launched it with, through `kepler_solver` as that path calls
     it: M contiguous, one eccentricity per chain expanded over the epochs
     (the Function makes it contiguous). 64 draws per shape and precision (8
     from 2^16 elements up), the first with e = 0, the second with e = 0.99,
     the third with M = 0 and +-pi among its entries; then both are timed at
-    that shape."""
+    that shape. `dtypes`: both precisions by default, float64 alone for
+    the float64 paths."""
     res = {}
     for shape in sorted(shapes, key=lambda s: int(np.prod(s))):
         n = int(np.prod(shape))
-        for dtype in (torch.float32, torch.float64):
+        for dtype in dtypes:
             rng = np.random.default_rng(6)
             worst = 0.0
             for trial in range(64 if n < 2**16 else 8):
@@ -1639,10 +1692,11 @@ def kepler_path_phase(kk, kepler_mod, shapes) -> dict:
             if not worst <= TOL[dtype]:
                 raise AssertionError(f"kernel disagrees with its twin at {shape} in {dtype}: {worst:.3e}")
             e = e.contiguous()
-            ms_t_a = _time_ms(lambda: kepler_mod._markley(M, e), 200)
-            ms_k_a = _time_ms(lambda: kk.kepler_solve_cuda(M, e), 200)
-            ms_k_b = _time_ms(lambda: kk.kepler_solve_cuda(M, e), 200)
-            ms_t_b = _time_ms(lambda: kepler_mod._markley(M, e), 200)
+            n_iter = 200 if n < 2**20 else 20
+            ms_t_a = _time_ms(lambda: kepler_mod._markley(M, e), n_iter)
+            ms_k_a = _time_ms(lambda: kk.kepler_solve_cuda(M, e), n_iter)
+            ms_k_b = _time_ms(lambda: kk.kepler_solve_cuda(M, e), n_iter)
+            ms_t_b = _time_ms(lambda: kepler_mod._markley(M, e), n_iter)
             ms_k, ms_t = min(ms_k_a, ms_k_b), min(ms_t_a, ms_t_b)
             log(f"timing {shape} {dtype}: kernel {ms_k:.4f} ms, twin {ms_t:.4f} ms "
                 f"(runs: kernel {ms_k_a:.4f}/{ms_k_b:.4f}, twin {ms_t_a:.4f}/{ms_t_b:.4f})")
@@ -2181,7 +2235,796 @@ def rvgp_phase(ot, kk, osk, adaptation=RVGP_ADAPTATION, iterations=RVGP_ITERATIO
     return res
 
 
+# ---------------------------------------------------------------------------
+# Absolute astrometry: the other orbit bases, Hipparcos IAD, the HGCA
+# linear-fit model and Gaia DR4 epoch astrometry (`octofitter_tpu_torch/
+# astrom/`, `orbits/absolute_visual.py`, `orbits/extra_bases.py`). Each
+# model-making function takes either package (`pkg`), so that the CPU
+# tests make the JAX package's side from the same data.
+
+# The synthetic Hipparcos star of the JAX package's tests
+# (tests/test_astrom.py:145-180): a Java-Tool IAD file at HIP_ORBITS
+# orbits x 2 abscissae (120, a real Hipparcos star's count), and a GOST
+# scan law of GOST_TRANSITS Gaia transits (its `synth_gost_csv` format)
+HIP_SOL = dict(radeg=68.0, dedeg=-51.0, plx=50.0, pm_ra=-5.0, pm_de=10.0)
+GAIA_SOL = dict(ra=68.0, dec=-51.0, parallax=50.0, pmra=-5.0, pmdec=10.0,
+                parallax_error=0.05, ra_error=0.03, dec_error=0.03,
+                pmra_error=0.05, pmdec_error=0.05)
+HIP_ORBITS, GOST_TRANSITS = 60, 60
+# `docs/hipparcos.md:140-200`: c Eri's relative astrometry (14 epochs) with
+# the IAD, an AbsoluteVisual{KepOrbit} mass fit (D = 16)
+HIP_ASTROM = dict(
+    epoch=np.array([57009.1, 57052.1, 57053.1, 57054.3, 57266.4, 57332.2, 57374.2, 57376.2,
+                    57415.0, 57649.4, 57652.4, 57739.1, 58068.3, 58442.2]),
+    sep=np.array([454.24, 451.81, 456.8, 461.5, 455.1, 452.88, 455.91, 455.01, 454.46, 454.81,
+                  451.43, 449.39, 447.54, 434.22]),
+    σ_sep=np.array([1.88, 2.06, 2.57, 23.9, 2.23, 5.41, 6.23, 3.03, 6.03, 2.02, 2.67, 2.15,
+                    3.02, 2.01]),
+    pa=np.array([2.98835, 2.96723, 2.97038, 2.97404, 2.91994, 2.89934, 2.89131, 2.89184,
+                 2.8962, 2.82394, 2.82272, 2.79357, 2.70927, 2.61171]),
+    σ_pa=np.array([0.00401426, 0.00453786, 0.00523599, 0.0523599, 0.00453786, 0.00994838,
+                   0.00994838, 0.00750492, 0.00890118, 0.00453786, 0.00541052, 0.00471239,
+                   0.00680678, 0.00401426]),
+)
+# the tutorial's straight-line catalog fit first, then the mass fit
+HIP_LINE_ADAPTATION, HIP_LINE_ITERATIONS = 150, 75
+HIP_ADAPTATION, HIP_ITERATIONS = 30, 30
+# the HGCA linear-fit fit (tests/test_astrom.py:300-337, include_iad=True):
+# the headline's orbit and 12 relative-astrometry epochs with a 30 Mjup
+# companion; its catalog row made by `generate_from_params` at the truth
+HGCA_MASS, HGCA_PM = 30.0, (-5.0, 10.0)
+HGCA_ADAPTATION, HGCA_ITERATIONS = 150, 75
+# Gaia DR4 epoch astrometry (tests/test_astrom.py:390-437) at Gaia BH3's
+# 620 epochs (examples/08), its centroids made at the truth
+DR4_EPOCHS = 620
+DR4_TRUTH = {"GaiaDR4_astrometric_jitter": 1e-3, "b_mass": 10.0}
+# Float64 evaluations on the card against the same model on the CPU: ln_post
+# within ABS_VALUE_TOL of max(|ln_post|, 1), each chain's gradient within
+# ABS_GRAD_TOL of its largest entry (at least 1), plus ULP_FACTOR times what
+# one ulp of the propagated degrees moves them by (`ulp_sensitivity`: the
+# most of ULP_SEEDS draws, every value an ulp up, down, or either at random). A
+# model on AbsoluteVisual{KepOrbit} subtracts positions in degrees, as the
+# reference does: one ulp of 68 deg is 1.4e-14 deg, 5e-8 mas, against
+# abscissa errors of 0.05-1.5 mas, and two implementations of arcsin and
+# atan2 (the JAX package's and libm's, the CPU's and CUDA's) differ by an
+# ulp or two in a share of their results.
+ABS_VALUE_TOL, ABS_GRAD_TOL, ULP_FACTOR, ULP_SEEDS = 1e-9, 1e-7, 16.0, 4
+ABSOLUTE = "AbsoluteVisual{KepOrbit}"
+OTHER_BASES = (ABSOLUTE, "CartesianOrbit", "Visual{FixedPosition}", "Hyperbolic{KepOrbit}")
+
+
+def write_synth_iad(path, n_orbits=30, res_sigma=1.5, seed=0):
+    """tests/test_astrom.py:write_synth_iad's Java-Tool IAD file: HIP_SOL's
+    catalog solution and 2 abscissae per orbit, residuals N(0, res_sigma),
+    all from numpy's seed `seed`."""
+    rng = np.random.default_rng(seed)
+    lines = ["# synthetic IAD", "#", "#", "#", "#", "#",
+             f"HIP    99999  99999  {2 * n_orbits}  1  5      0    0.00  0", "#",
+             f"Hp      5.000  0.100  0      {2 * n_orbits} 0", "#",
+             (f"radeg   {HIP_SOL['radeg']}  {HIP_SOL['dedeg']}  {HIP_SOL['plx']}"
+              f"  {HIP_SOL['pm_ra']}  {HIP_SOL['pm_de']}" + "  0.50" * 18), "#"]
+    for iorb in range(1, n_orbits + 1):
+        ep = -1.5 + 3.0 * (iorb - 1) / (n_orbits - 1)
+        for k in range(2):
+            ang = rng.uniform(0, 2 * np.pi)
+            parf = rng.uniform(-0.7, 0.7)
+            res = rng.standard_normal() * res_sigma
+            lines.append(f"{iorb} {ep + 0.003 * k:.4f} {parf:.3f} {math.cos(ang):.4f} "
+                         f"{math.sin(ang):.4f} {res:.3f} {res_sigma:.2f}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
+
+
+def synth_gost_csv(directory, n=40, seed=1):
+    """tests/test_astrom.py:synth_gost_csv's GOST forecast of `n` Gaia
+    transits over JD 2456900-2457900, as `directory`/gost.csv."""
+    rng = np.random.default_rng(seed)
+    jd = np.sort(rng.uniform(2456900.0, 2457900.0, n))
+    angle = rng.uniform(-np.pi, np.pi, n)
+    parf = rng.uniform(-0.7, 0.7, n)
+    path = str(Path(directory) / "gost.csv")
+    with open(path, "w") as f:
+        f.write("Target, ra[rad], dec[rad], ObservationTimeAtGaia[UTC], scanAngle[rad],"
+                " parallaxFactorAlongScan, parallaxFactorAcrossScan,"
+                " ObservationTimeAtBarycentre[BarycentricJulianDateInTCB]\n")
+        for i in range(n):
+            f.write(f"t,1.0,0.5,2015-01-01T00:00:00,{angle[i]},{parf[i]},0.0,{jd[i]}\n")
+    return path
+
+
+def _headline_planet_variables(pkg, ref_epoch=57000.0):
+    """The headline planet's variables: a, e, i ~ Sine, UniformCircular
+    omega / Omega / theta, tp from theta at `ref_epoch`."""
+    d = pkg.distributions
+    return dict(
+        a=d.Uniform(0.001, 100.0),
+        e=d.Uniform(0.0, 0.99),
+        i=d.Sine(),
+        omega=pkg.UniformCircular(),
+        Omega=pkg.UniformCircular(),
+        theta=pkg.UniformCircular(),
+        tp=lambda sys, pl: pkg.theta_at_epoch_to_tperi(
+            pl.theta, ref_epoch, M=sys.M, e=pl.e, a=pl.a, i=pl.i, omega=pl.omega,
+            Omega=pl.Omega),
+    )
+
+
+def _headline_system_variables(pkg):
+    d = pkg.distributions
+    return dict(M=d.truncated(d.Normal(1.2, 0.1), lower=0.1),
+                plx=d.truncated(d.Normal(50.0, 0.02), lower=0.1))
+
+
+def build_basis_model(pkg, basis, table, **model_kw):
+    """The headline's relative astrometry on one of the other orbit bases:
+    AbsoluteVisual{KepOrbit} (the headline planet, the barycentre at
+    HIP_SOL's position with per-chain proper motions and radial velocity),
+    CartesianOrbit (the headline orbit's state vector at MJD 57000, each
+    coordinate within 5% of its vector's length), Visual{FixedPosition}
+    (one sky offset) or Hyperbolic{KepOrbit}."""
+    d = pkg.distributions
+    sys_vars = _headline_system_variables(pkg)
+    if basis == ABSOLUTE:
+        pl_vars = _headline_planet_variables(pkg)
+        sys_vars.update(ra=HIP_SOL["radeg"], dec=HIP_SOL["dedeg"], rv=d.Normal(0.0, 2e4),
+                        pmra=d.Normal(-5.0, 50.0), pmdec=d.Normal(10.0, 50.0),
+                        ref_epoch=57000.0)
+    elif basis == "CartesianOrbit":
+        # the headline orbit's state at tref within 5%: well away from the
+        # circular, face-on and unbound orbits where the conversion to
+        # Campbell elements loses its digits (arccos at +-1)
+        _, state = _headline_state(57000.0)
+        pl_vars = {k: d.Normal(v, 0.05 * math.hypot(*(state[c] for c in (
+                   ("x", "y", "z") if k in "xyz" else ("vx", "vy", "vz"))))) for k, v in state.items()}
+        pl_vars["tref"] = 57000.0
+    elif basis == "Visual{FixedPosition}":
+        pl_vars = dict(x=d.Normal(0.0, 5.0), y=d.Normal(0.0, 5.0))
+    elif basis == "Hyperbolic{KepOrbit}":
+        pl_vars = dict(a=d.Uniform(-20.0, -1.0), e=d.Uniform(1.1, 3.0), i=d.Sine(),
+                       omega=pkg.UniformCircular(), Omega=pkg.UniformCircular(),
+                       tp=d.Normal(57000.0, 500.0))
+    else:
+        raise ValueError(f"no relative-astrometry model for basis {basis!r}")
+    b = pkg.Planet(name="b", basis=basis, variables=pl_vars,
+                   observations=[pkg.PlanetRelAstromObs(table, name="simdata")])
+    system = pkg.System(name=f"bases_{basis}", variables=sys_vars, companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def hip_data(directory) -> dict:
+    """The Hipparcos path's data: the IAD file (HIP_ORBITS x 2 abscissae)
+    written into `directory`, and the tutorial's relative astrometry."""
+    return {"iad_file": write_synth_iad(str(Path(directory) / "hip_iad.d"), n_orbits=HIP_ORBITS),
+            "astrom": HIP_ASTROM}
+
+
+def build_hip_mass_model(pkg, data, xp, **model_kw):
+    """`docs/hipparcos.md:140-200`'s companion-mass fit with either package
+    (`xp`: its array module, torch or jax.numpy, for the derived ra):
+    AbsoluteVisual{KepOrbit}, the IAD on the system and the relative
+    astrometry on the planet; D = 16."""
+    d = pkg.distributions
+    hip = pkg.HipparcosIADObs(iad_file=data["iad_file"])
+    ra0, dec0 = hip.hip_sol["radeg"], hip.hip_sol["dedeg"]
+    mas2deg = 1.0 / 60 / 60 / 1000
+    mjup2msol = pkg.constants.MJUP2MSOL
+    b = pkg.Planet(
+        name="b", basis=ABSOLUTE,
+        observations=[pkg.PlanetRelAstromObs(data["astrom"], name="VLT/SPHERE")],
+        variables=dict(
+            a=d.truncated(d.Normal(10.0, 1.0), lower=0.1),
+            e=d.Uniform(0.0, 0.99),
+            omega=pkg.UniformCircular(),
+            i=d.Sine(),
+            Omega=pkg.UniformCircular(),
+            theta=pkg.UniformCircular(),
+            M=lambda sys, pl: sys.M,
+            tp=lambda sys, pl: pkg.theta_at_epoch_to_tperi(
+                pl.theta, 58442.2, M=pl.M, e=pl.e, a=pl.a, i=pl.i, omega=pl.omega,
+                Omega=pl.Omega),
+            mass=lambda sys, pl: sys.M_sec,
+        ),
+    )
+    system = pkg.System(
+        name="cEri", companions=[b], observations=[hip],
+        variables=dict(
+            M_pri=d.truncated(d.Normal(1.75, 0.05), lower=0.03),
+            M_sec=d.LogUniform(0.1, 100.0),        # Mjup
+            M=lambda s: s.M_pri + s.M_sec * mjup2msol,
+            rv=12.60e3,                             # m/s
+            plx=d.Uniform(20.0, 70.0),
+            pmra=d.Uniform(-100.0, 100.0),
+            pmdec=d.Uniform(-100.0, 100.0),
+            ra_hip_offset_mas=d.Normal(0.0, 1000.0),
+            dec_hip_offset_mas=d.Normal(0.0, 1000.0),
+            dec=lambda s: dec0 + s.dec_hip_offset_mas * mas2deg,
+            ra=lambda s: ra0 + s.ra_hip_offset_mas * mas2deg / xp.cos(xp.deg2rad(s.dec)),
+            ref_epoch=pkg.constants.HIPPARCOS_EPOCH_MJD,
+        ),
+    )
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def build_hip_line_model(pkg, data, xp, **model_kw):
+    """`docs/hipparcos.md:58-90`'s straight-line model with either package
+    (`xp` as in `build_hip_mass_model`): the IAD alone, a zero-mass
+    companion on AbsoluteVisual{KepOrbit}, the five astrometric parameters
+    free (D = 5)."""
+    d = pkg.distributions
+    hip = pkg.HipparcosIADObs(iad_file=data["iad_file"])
+    ra0, dec0 = hip.hip_sol["radeg"], hip.hip_sol["dedeg"]
+    mas2deg = 1.0 / 60 / 60 / 1000
+    b = pkg.Planet(name="b", basis=ABSOLUTE,
+                   variables=dict(mass=0.0, e=0.0, omega=0.0, a=1.0, i=0.0, Omega=0.0, tp=0.0))
+    system = pkg.System(
+        name="c_Eri_straight_line", companions=[b], observations=[hip],
+        variables=dict(
+            M=1.0, rv=0.0,
+            plx=d.Uniform(10.0, 100.0),
+            pmra=d.Uniform(-100.0, 100.0),
+            pmdec=d.Uniform(-100.0, 100.0),
+            ra_hip_offset_mas=d.Normal(0.0, 10_000.0),
+            dec_hip_offset_mas=d.Normal(0.0, 10_000.0),
+            dec=lambda s: dec0 + s.dec_hip_offset_mas * mas2deg,
+            ra=lambda s: ra0 + s.ra_hip_offset_mas * mas2deg / xp.cos(xp.deg2rad(s.dec)),
+            ref_epoch=pkg.constants.HIPPARCOS_EPOCH_MJD,
+        ),
+    )
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+HIP_GUESS = dict(plx=HIP_SOL["plx"], pmra=HIP_SOL["pm_ra"], pmdec=HIP_SOL["pm_de"],
+                 ra_hip_offset_mas=0.0, dec_hip_offset_mas=0.0)
+# the new fits' initialization runs INIT_OPT_STEPS multistart Adam steps,
+# not the default 1000 (most of an initialization's time: each is one
+# evaluation at 512 starts)
+INIT_OPT_STEPS = 300
+
+
+def _hgca_row_template() -> dict:
+    """tests/test_astrom.py:hgca_linfit_model's catalog row (the model's
+    proper motions are written over it)."""
+    return dict(
+        pmra_hip=0.0, pmdec_hip=0.0, pmra_hip_error=0.4, pmdec_hip_error=0.4,
+        pmra_pmdec_hip=0.1,
+        pmra_gaia=0.0, pmdec_gaia=0.0, pmra_gaia_error=0.03, pmdec_gaia_error=0.03,
+        pmra_pmdec_gaia=-0.1,
+        pmra_hg=0.0, pmdec_hg=0.0, pmra_hg_error=0.03, pmdec_hg_error=0.03, pmra_pmdec_hg=0.0,
+        epoch_ra_hip=1991.25, epoch_dec_hip=1991.25, epoch_ra_gaia=2016.0, epoch_dec_gaia=2016.0,
+        nonlinear_dpmra=0.0, nonlinear_dpmdec=0.0, parallax_gaia=50.0, parallax_gaia_error=0.05,
+    )
+
+
+def build_hgca_model(pkg, data, basis="Visual{KepOrbit}", missed_transits=None, **model_kw):
+    """The HGCA linear-fit model with either package: `HGCAObs`
+    (include_iad=True) over the IAD and the GOST scan law of `data`, on the
+    headline planet with a mass (D = 14) and its relative astrometry. On
+    AbsoluteVisual{KepOrbit} the barycentre sits at GAIA_SOL's position at
+    the Gaia DR3 epoch, with no radial velocity."""
+    d = pkg.distributions
+    hip = pkg.HipparcosIADObs(iad_file=data["iad_file"])
+    gaia = pkg.GaiaCatalogFitObs(gaia_sol=GAIA_SOL, scanlaw=data["gost_file"])
+    hgca = pkg.HGCAObs(hgca=data["hgca"], hip_like=hip, gaia_like=gaia, include_iad=True)
+    b = pkg.Planet(name="b", basis=basis,
+                   variables=dict(_headline_planet_variables(pkg), mass=d.Uniform(0.0, 100.0)),
+                   observations=[pkg.PlanetRelAstromObs(data["astrom"], name="simdata")])
+    sys_vars = dict(_headline_system_variables(pkg), pmra=d.Normal(0.0, 100.0),
+                    pmdec=d.Normal(0.0, 100.0))
+    if basis == ABSOLUTE:
+        sys_vars.update(ra=GAIA_SOL["ra"], dec=GAIA_SOL["dec"], rv=0.0, ref_epoch=57388.5)
+    if missed_transits is not None:
+        sys_vars["missed_transits"] = np.asarray(missed_transits, dtype=np.float64)
+    system = pkg.System(name="hgcalinfit", variables=sys_vars, companions=[b],
+                        observations=[hgca])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def _headline_state(t_mjd=57000.0):
+    """The headline orbit (TRUE) at `t_mjd` from a plain numpy Kepler solve
+    (the period in days from the Gaussian gravitational constant, as
+    `constants.KEPLER_YEAR_DAYS`): its position angle and its Cartesian
+    state (x, y, z [AU], vx, vy, vz [AU/day]; +x East, +y North, +z away)."""
+    t = TRUE
+    n = 2 * np.pi / (np.sqrt(t["a"] ** 3 / t["M"]) * 2 * np.pi / 0.01720209894846)
+    M = n * (t_mjd - t["tp"])
+    E = M
+    for _ in range(50):
+        E = E - (E - t["e"] * np.sin(E) - M) / (1 - t["e"] * np.cos(E))
+    sq, Edot = np.sqrt(1 - t["e"] ** 2), n / (1 - t["e"] * np.cos(E))
+    X, Y = t["a"] * (np.cos(E) - t["e"]), t["a"] * sq * np.sin(E)
+    VX, VY = -t["a"] * np.sin(E) * Edot, t["a"] * sq * np.cos(E) * Edot
+    cw, sw, cO, sO, ci = (np.cos(t["omega"]), np.sin(t["omega"]), np.cos(t["Omega"]),
+                          np.sin(t["Omega"]), np.cos(t["i"]))
+    A, B = cO * cw - sO * sw * ci, sO * cw + cO * sw * ci
+    F, G = -cO * sw - sO * cw * ci, -sO * sw + cO * cw * ci
+    si = np.sin(t["i"])
+    state = dict(x=B * X + G * Y, y=A * X + F * Y, z=si * (sw * X + cw * Y),
+                 vx=B * VX + G * VY, vy=A * VX + F * VY, vz=si * (sw * VX + cw * VY))
+    return float(np.arctan2(state["x"], state["y"])), {k: float(v) for k, v in state.items()}
+
+
+def hgca_truth(model) -> list:
+    """The HGCA model's natural-space truth: the headline orbit with the
+    30 Mjup companion and the Gaia catalog's proper motions."""
+    theta, _ = _headline_state()
+    t = TRUE
+    values = {"M": t["M"], "plx": t["plx"], "pmra": HGCA_PM[0], "pmdec": HGCA_PM[1],
+              "b_a": t["a"], "b_e": t["e"], "b_i": t["i"], "b_omegax": np.cos(t["omega"]),
+              "b_omegay": np.sin(t["omega"]), "b_Omegax": np.cos(t["Omega"]),
+              "b_Omegay": np.sin(t["Omega"]), "b_thetax": np.cos(theta),
+              "b_thetay": np.sin(theta), "b_mass": HGCA_MASS}
+    return [values[n] for n in model.parameter_names]
+
+
+def hgca_data(ot, directory, n_orbits=HIP_ORBITS, n_transits=GOST_TRANSITS) -> dict:
+    """The HGCA path's data: the IAD (`n_orbits` x 2 abscissae) and the
+    GOST scan law (`n_transits`) written into `directory`, the headline's
+    relative astrometry (`bench_table`), and the catalog row that the
+    port's `generate_from_params` makes at the truth on the CPU in float64
+    (no noise)."""
+    data = {"iad_file": write_synth_iad(str(Path(directory) / "hgca_iad.d"), n_orbits=n_orbits),
+            "gost_file": synth_gost_csv(directory, n=n_transits),
+            "astrom": bench_table(ot), "hgca": _hgca_row_template()}
+    model = build_hgca_model(ot, data, device="cpu")
+    truth = model.arr2nt(model.tensor(hgca_truth(model)))
+    data["hgca"] = dict(ot.generate_from_params(model, truth).observations[0].hgca)
+    return data
+
+
+def dr4_table(n=DR4_EPOCHS, seed=0) -> dict:
+    """tests/test_astrom.py:test_gaia_dr4_roundtrip's scans at `n` epochs
+    (MJD 57000-58500), centroids 0 until `dr4_data` fills them."""
+    rng = np.random.default_rng(seed)
+    return dict(epoch=np.sort(rng.uniform(57000, 58500, n)), centroid_pos_al=np.zeros(n),
+                centroid_pos_error_al=np.full(n, 0.05), scan_pos_angle=rng.uniform(0, 2 * np.pi, n),
+                parallax_factor_al=rng.uniform(-0.7, 0.7, n))
+
+
+def build_dr4_model(pkg, table, basis="Visual{KepOrbit}", detrend=False, **model_kw):
+    """tests/test_astrom.py:390-437's Gaia DR4 model (D = 2: the jitter and
+    the companion's mass) with either package, on the Visual or the
+    AbsoluteVisual branch, with or without `primary_star_perturbation`."""
+    d = pkg.distributions
+    obs = pkg.GaiaDR4AstromObs(table, gaia_sol=dict(ra=68.0, dec=-51.0),
+                               primary_star_perturbation=detrend,
+                               variables=dict(astrometric_jitter=d.LogUniform(1e-4, 1.0)))
+    b = pkg.Planet(name="b", basis=basis,
+                   variables=dict(a=2.0, e=0.1, i=0.5, omega=1.0, Omega=2.0, tp=57000.0,
+                                  mass=d.Uniform(0.0, 50.0)))
+    sys_vars = dict(M=1.0, plx=50.0, pmra=0.0, pmdec=0.0)
+    if basis == ABSOLUTE:
+        sys_vars.update(ra=68.0, dec=-51.0, rv=0.0, ref_epoch=57388.5)
+    system = pkg.System(name="dr4", variables=sys_vars, companions=[b], observations=[obs])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def dr4_data(ot) -> dict:
+    """The DR4 path's table: its centroids made by the port's
+    `generate_from_params` on the Visual branch at DR4_TRUTH, on the CPU
+    in float64, without noise."""
+    model = build_dr4_model(ot, dr4_table(), device="cpu")
+    truth = model.arr2nt(model.tensor([DR4_TRUTH[n] for n in model.parameter_names]))
+    return dict(ot.generate_from_params(model, truth).observations[0].table)
+
+
+@contextlib.contextmanager
+def degrees_one_ulp_off(seed=0):
+    """Within the block every `torch.rad2deg` result (the AbsoluteVisual
+    propagation's ra2 and dec2, `orbits/absolute_visual.py`, the port's only
+    caller) moves one ulp: all up for seed 0, all down for seed 1 (an
+    arcsin or atan2 that rounds one argument apart does so at every epoch
+    where the barycentre stands still), up or down at random from `seed`
+    above."""
+    plain = torch.rad2deg
+    gen = torch.Generator().manual_seed(seed)
+
+    def nudged(x):
+        y = plain(x)
+        if seed < 2:
+            up = torch.full(y.shape, seed == 0, device=y.device)
+        else:
+            up = (torch.rand(y.shape, generator=gen, dtype=torch.float64) < 0.5).to(y.device)
+        step = torch.nextafter(y.detach(), torch.where(up, math.inf, -math.inf).to(y.dtype))
+        return y + (step - y.detach())  # the gradient passes through unchanged
+
+    torch.rad2deg = nudged
+    try:
+        yield
+    finally:
+        torch.rad2deg = plain
+
+
+def ulp_sensitivity(fn, theta):
+    """How far `fn(theta)` = (values (C,), gradients (C, D)) move when the
+    propagated degrees move by one ulp (`degrees_one_ulp_off`, ULP_SEEDS
+    draws): per chain, the most |d value| and the most of the largest
+    |d gradient|; zero where no planet is on AbsoluteVisual{KepOrbit}."""
+    lp, g = fn(theta)
+    dv = dg = torch.zeros_like(lp)
+    for seed in range(ULP_SEEDS):
+        with degrees_one_ulp_off(seed):
+            lp2, g2 = fn(theta)
+        fin = torch.isfinite(lp) & torch.isfinite(lp2)
+        dv = torch.maximum(dv, torch.where(fin, (lp2 - lp).abs(), 0.0))
+        dg = torch.maximum(dg, torch.where(fin, (g2 - g).abs().amax(-1), 0.0))
+    return dv, dg
+
+
+def hold_values_and_gradients(label, lp, g, lp_ref, g_ref, dv, dg) -> tuple[float, float]:
+    """(lp, g) against (lp_ref, g_ref), all on the CPU: the same rows finite,
+    then over the finite rows each value within ABS_VALUE_TOL
+    max(|lp_ref|, 1) + ULP_FACTOR dv and each chain's gradient within
+    ABS_GRAD_TOL max(its largest entry, 1) + ULP_FACTOR dg (`dv`, `dg` from
+    `ulp_sensitivity`). Returns the worst shares of those limits."""
+    fin = torch.isfinite(lp_ref) & torch.isfinite(g_ref).all(dim=-1)
+    if not torch.equal(torch.isfinite(lp), torch.isfinite(lp_ref)):
+        raise AssertionError(f"{label}: the two evaluations disagree on which rows are finite")
+    diff_v = (lp - lp_ref).abs()
+    diff_g = (g - g_ref).abs().amax(-1)
+    lim_v = ABS_VALUE_TOL * lp_ref.abs().clamp(min=1.0) + ULP_FACTOR * dv
+    lim_g = ABS_GRAD_TOL * g_ref.abs().amax(-1).clamp(min=1.0) + ULP_FACTOR * dg
+    share_v = float((diff_v / lim_v)[fin].max())
+    share_g = float((diff_g / lim_g)[fin].max())
+    log(f"{label}: {int(fin.sum())} of {len(lp)} points finite; ln_post max |diff| "
+        f"{float(diff_v[fin].max()):.3e} ({float((diff_v / lp_ref.abs().clamp(min=1.0))[fin].max()):.3e}"
+        f" relative), {share_v:.3f} of its limit; gradient {share_g:.3f} of its limit (one ulp "
+        f"of the degrees moves ln_post by up to {float(dv[fin].max()):.3e})")
+    if not (share_v <= 1.0 and share_g <= 1.0):
+        raise AssertionError(f"{label}: the evaluations disagree")
+    return share_v, share_g
+
+
+def evaluation_profile(label, model, theta) -> dict:
+    """One batched value-and-gradient of `model` at `theta`: host us per
+    evaluation (the host clock around a synchronize, 10 calls after a
+    warm-up), us by CUDA events, and the device operations and device-busy
+    us per evaluation from torch.profiler."""
+    fn = lambda: model.ln_post_and_grad(theta)  # noqa: E731
+    dev_ms, host_ms = _time_both(fn, 10)
+    ops, busy = _device_ops_per_call(fn)
+    log(f"  {label}: {host_ms * 1e3:.1f} us per evaluation on the host clock, "
+        f"{dev_ms * 1e3:.1f} us by CUDA events, "
+        f"{ops if ops is not None else 'not measured'} device ops and "
+        f"{f'{busy:.1f}' if busy is not None else 'not measured'} us of device time per "
+        f"evaluation ({theta.shape[0]} chains, {model.n_epochs} epochs, {model.dtype})")
+    return {"us": host_ms * 1e3, "device_us": dev_ms * 1e3, "ops": ops, "busy_us": busy}
+
+
+def _card_evaluation(label, kk, osk, model, ref, theta) -> dict:
+    """`model` (on the card) and `ref` (the CPU) at the unconstrained
+    points `theta` (a CPU tensor), compared (`hold_values_and_gradients`,
+    with the CPU model's `ulp_sensitivity`); the card's launches of the one
+    evaluation and its profile."""
+    lp_ref, g_ref = ref.ln_post_and_grad(theta)
+    dv, dg = ulp_sensitivity(ref.ln_post_and_grad, theta)
+    _reset_launches(kk, osk)
+    lp, g = model.ln_post_and_grad(theta.to("cuda"))
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    shapes = dict(kk.launch_shapes)
+    errs = hold_values_and_gradients(f"{label}, float64 card vs CPU", lp.cpu(), g.cpu(), lp_ref,
+                                     g_ref, dv, dg)
+    log(f"  {label}: launches of one evaluation {launches}; kepler_solve by shape {shapes}")
+    prof = evaluation_profile(label, model, theta.to("cuda"))
+    return {"launches": launches, "kepler_shapes": shapes, "errs": errs, "profile": prof}
+
+
+def bases_phase(ot, kk, osk) -> dict:
+    """One float64 value-and-gradient at CHAINS prior draws of the
+    headline's relative astrometry on each of OTHER_BASES, on the card and
+    on the CPU, compared. Gates: the standalone Kepler kernel launched once
+    (and the fused pair never) where the basis solves Kepler's equation
+    (AbsoluteVisual at each chain's emission epochs, Cartesian through its
+    Campbell elements); the hyperbolic solve on the card, its anomaly held
+    to the CPU's; no kernel for the fixed position."""
+    t0 = time.perf_counter()
+    table = bench_table(ot)
+    res = {}
+    for basis in OTHER_BASES:
+        model = build_basis_model(ot, basis, table, device="cuda", dtype=torch.float64)
+        ref = build_basis_model(ot, basis, table, device="cpu", dtype=torch.float64)
+        theta = ref.link(ref.sample_priors(torch.Generator().manual_seed(11), CHAINS))
+        out = _card_evaluation(f"basis {basis}", kk, osk, model, ref, theta)
+        launches = out["launches"]
+        kepler_expected = 1 if basis in (ABSOLUTE, "CartesianOrbit") else 0
+        if launches["kepler_solve"] != kepler_expected or launches["orbit_solve_fwd"]:
+            raise AssertionError(f"basis {basis}: launches {launches}, expected the Kepler "
+                                 f"kernel {kepler_expected} time(s) and no fused pair")
+        if basis == "Hyperbolic{KepOrbit}":
+            with torch.no_grad():
+                (orbit,) = model.construct_orbits(model.arr2nt(model.invlink(theta.to("cuda"))))
+                sol = ot.orbitsolve(orbit, model._epochs_t)
+                (orbit_c,) = ref.construct_orbits(ref.arr2nt(ref.invlink(theta)))
+                sol_c = ot.orbitsolve(orbit_c, ref._epochs_t)
+            err_h = float(((sol.EA.cpu() - sol_c.EA).abs() / sol_c.EA.abs().clamp(min=1.0)).max())
+            log(f"  hyperbolic anomaly solved on {sol.EA.device}: max relative |dH| {err_h:.3e} "
+                f"against the CPU (tol {ABS_VALUE_TOL:.0e})")
+            if sol.EA.device.type != "cuda" or not err_h <= ABS_VALUE_TOL:
+                raise AssertionError("basis Hyperbolic{KepOrbit}: the hyperbolic solve did not "
+                                     "run on the card or disagrees with the CPU")
+        res.setdefault("runs", {})[basis] = out
+    res["seconds"] = time.perf_counter() - t0
+    log(f"orbit bases phase: {res['seconds']:.2f} s")
+    return res
+
+
+def hip_path_phase(ot, kk, osk, directory) -> dict:
+    """The Hipparcos path (`docs/hipparcos.md`), float64 on the card (the
+    model subtracts the catalog position in degrees: float32 carries 27 mas
+    at ra = 68 deg against 1.5 mas abscissa errors), `octofit` with
+    initialization (the tutorial's guess) at CHAINS chains. First the
+    tutorial's straight-line fit (D = 5), HIP_LINE_ADAPTATION +
+    HIP_LINE_ITERATIONS, with the gates of `fit_phase` (the standalone
+    Kepler kernel on every evaluation) and the tutorial's catalog test
+    (|pull| < 3 on plx, pmra, pmdec). Then the companion-mass fit (D = 16,
+    the relative astrometry added), HIP_ADAPTATION + HIP_ITERATIONS, with the
+    gates of `fit_phase` but R-hat reported, not gated: on the tutorial's
+    14 epochs, a short arc of the orbit, its (a, e, i, Omega) ridge and
+    mass-position degeneracy do not mix in a run of this length (PERF.md);
+    then the card's evaluation at its last draws held to the CPU model's."""
+    t0 = time.perf_counter()
+    data = hip_data(directory)
+    line = build_hip_line_model(ot, data, torch, device="cuda")
+    res_line = fit_phase(ot, kk, osk, line, f"hipparcos catalog fit ({HIP_LINE_ADAPTATION} + "
+                         f"{HIP_LINE_ITERATIONS})", CHAINS, HIP_LINE_ADAPTATION,
+                         HIP_LINE_ITERATIONS,
+                         init_kwargs={"guess": HIP_GUESS, "n_opt_steps": INIT_OPT_STEPS})
+    chain = res_line["chain"]
+    hip_sol = line.system.observations[0].hip_sol
+    for key, cat_key, err_key in (("plx", "plx", "e_plx"), ("pmra", "pm_ra", "e_pmra"),
+                                  ("pmdec", "pm_de", "e_pmde")):
+        post = np.asarray(chain[key]).ravel()
+        mu, sd = float(post.mean()), float(post.std())
+        cat, cat_err = hip_sol[cat_key], hip_sol[err_key]
+        pull = (mu - cat) / math.hypot(sd, cat_err)
+        log(f"  catalog test {key}: posterior {mu:.4f} +- {sd:.4f}, catalog {cat} +- {cat_err}, "
+            f"pull {pull:+.3f}")
+        if not abs(pull) < 3.0:
+            raise AssertionError(f"hipparcos path: {key} fails the catalog test (pull {pull:.3f})")
+
+    model = build_hip_mass_model(ot, data, torch, device="cuda")
+    ref = build_hip_mass_model(ot, data, torch, device="cpu")
+    res = fit_phase(ot, kk, osk, model, f"hipparcos mass fit ({HIP_ADAPTATION} + "
+                    f"{HIP_ITERATIONS})", CHAINS, HIP_ADAPTATION, HIP_ITERATIONS,
+                    init_kwargs={"guess": HIP_GUESS, "n_opt_steps": INIT_OPT_STEPS},
+                    rhat_gate=False)
+    mass = np.asarray(res["chain"]["b_mass"]).ravel()
+    log(f"  companion mass 90% interval {np.percentile(mass, 5):.3f} - "
+        f"{np.percentile(mass, 95):.3f} Mjup")
+    nat = np.stack([res["chain"][n][:, -1] for n in model.parameter_names], axis=-1)
+    theta = ref.link(ref.tensor(nat))
+    res["evaluation"] = _card_evaluation("hipparcos evaluation at the last draws", kk, osk, model,
+                                         ref, theta)
+    res["line"] = res_line
+    for shape, count in res_line["kepler_shapes"].items():
+        res["kepler_shapes"][shape] = res["kepler_shapes"].get(shape, 0) + count
+    res["seconds"] = time.perf_counter() - t0
+    log(f"hipparcos phase: {res['seconds']:.2f} s")
+    return res
+
+
+def _points_near(model, nat, n, seed):
+    """`n` unconstrained points of `model`: the natural-space `nat` plus
+    N(0, 1e-3) in every coordinate (CPU, float64)."""
+    rng = np.random.default_rng(seed)
+    base = model.link(model.tensor([nat])).cpu().double()
+    return base + torch.as_tensor(1e-3 * rng.standard_normal((n, model.D)))
+
+
+def hgca_path_phase(ot, kk, osk, directory) -> dict:
+    """The HGCA linear-fit path: its data made on the CPU in float64
+    (`hgca_data`), the float32 model on the card checked against a float64
+    CPU model (`reference_phase`), then `octofit` with initialization at
+    CHAINS chains, ChEES, HGCA_ADAPTATION + HGCA_ITERATIONS, with the gates
+    of `fit_phase` (the fused pair on every gradient evaluation) and the
+    medians of b_mass and b_a within 5 sd of the truth. Then one float64
+    evaluation of the same HGCAObs on AbsoluteVisual{KepOrbit} (the
+    propagated-astrometry branch) at CHAINS points near the truth, held to
+    the CPU model."""
+    t0 = time.perf_counter()
+    data = hgca_data(ot, directory)
+    log(f"hgca data: catalog row made at the truth: "
+        f"{ {k: round(v, 6) for k, v in data['hgca'].items() if k.startswith('pm') and 'error' not in k} }")
+    model = build_hgca_model(ot, data, device="cuda", dtype=torch.float32)
+    ref = build_hgca_model(ot, data, device="cpu", dtype=torch.float64)
+    reference_phase("hgca linear fit", model, ref, _points_near(ref, hgca_truth(ref), 64, seed=5))
+    res = fit_phase(ot, kk, osk, model, f"hgca path ({HGCA_ADAPTATION} + {HGCA_ITERATIONS})",
+                    CHAINS, HGCA_ADAPTATION, HGCA_ITERATIONS,
+                    init_kwargs={"n_opt_steps": INIT_OPT_STEPS})
+    _gate_median("hgca path", res["chain"], "b_mass", HGCA_MASS)
+    _gate_median("hgca path", res["chain"], "b_a", TRUE["a"])
+    nat = np.stack([res["chain"][n][:, -1] for n in model.parameter_names], axis=-1)
+    res["profile"] = evaluation_profile("hgca evaluation at the last draws", model,
+                                        model.link(model.tensor(nat)))
+    res["fits"] = hgca_fits_profile(ot, model)
+    model_abs = build_hgca_model(ot, data, basis=ABSOLUTE, device="cuda", dtype=torch.float64)
+    ref_abs = build_hgca_model(ot, data, basis=ABSOLUTE, device="cpu", dtype=torch.float64)
+    theta = _points_near(ref_abs, hgca_truth(ref_abs), CHAINS, seed=8)
+    res["absolute"] = _card_evaluation("hgca on AbsoluteVisual{KepOrbit}", kk, osk, model_abs,
+                                       ref_abs, theta)
+    if res["absolute"]["launches"]["kepler_solve"] != 1:
+        raise AssertionError("hgca on AbsoluteVisual: the Kepler kernel was not launched once")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"hgca phase: {res['seconds']:.2f} s")
+    return res
+
+
+def hgca_fits_profile(ot, model) -> dict:
+    """The HGCA model's two 5-parameter fits alone, as one evaluation runs
+    them (`astrom/fitting.py:fit_5param`: the Gaia window's scans, the
+    Hipparcos window's with residuals and per-scan sigma), value and
+    gradient with respect to the perturbations at CHAINS rows in the
+    model's dtype: host us per call, device ops and device us."""
+    from octofitter_tpu_torch.astrom import fit_5param
+
+    obs = model.system.observations[0]
+    rng = np.random.default_rng(9)
+    tensor = model.tensor
+    windows = []
+    for like, extra in ((obs.gaia_like, {}), (obs.hip_like, {"res": "residuals", "sres": "sigma"})):
+        n = len(like.table["epoch"])
+        windows.append((tensor(like.A_prepared_5), tensor(like.table["cosphi"]),
+                        tensor(like.table["sinphi"]),
+                        tensor(rng.standard_normal((CHAINS, n))).requires_grad_(True),
+                        tensor(rng.standard_normal((CHAINS, n))).requires_grad_(True),
+                        {arg: tensor(like.table[col]) for col, arg in extra.items()}))
+
+    def both():
+        total = 0.0
+        for A, c, s_, da, dd, kw in windows:
+            total = total + sum(p.sum() for p in fit_5param(A, c, s_, da, dd, **kw)["parameters"])
+        return torch.autograd.grad(total, [w[3] for w in windows] + [w[4] for w in windows])
+
+    dev_ms, host_ms = _time_both(both, 20)
+    ops, busy = _device_ops_per_call(both)
+    log(f"  hgca 5-parameter fits (Gaia {windows[0][3].shape[-1]} and Hipparcos "
+        f"{windows[1][3].shape[-1]} scans, {CHAINS} rows, {model.dtype}), value and gradient: "
+        f"{host_ms * 1e3:.1f} us on the host clock, {dev_ms * 1e3:.1f} us by CUDA events, "
+        f"{ops if ops is not None else 'not measured'} device ops, "
+        f"{f'{busy:.1f}' if busy is not None else 'not measured'} us of device time")
+    return {"us": host_ms * 1e3, "device_us": dev_ms * 1e3, "ops": ops, "busy_us": busy}
+
+
+def dr4_path_phase(ot, kk, osk) -> dict:
+    """The Gaia DR4 path at DR4_EPOCHS epochs: its centroids made on the
+    CPU in float64 (`dr4_data`); on the Visual and the AbsoluteVisual
+    branch, with and without `primary_star_perturbation`, one float64
+    value-and-gradient at CHAINS prior draws on the card, held to the CPU
+    model, with its launches (the fused forward once on the Visual branch,
+    the standalone Kepler kernel once on the AbsoluteVisual one; the orbit
+    is fixed, so no backward) and its profile."""
+    t0 = time.perf_counter()
+    table = dr4_data(ot)
+    res = {}
+    for basis in ("Visual{KepOrbit}", ABSOLUTE):
+        for detrend in (False, True):
+            label = f"dr4 {basis}{' detrended' if detrend else ''}"
+            model = build_dr4_model(ot, table, basis, detrend, device="cuda", dtype=torch.float64)
+            ref = build_dr4_model(ot, table, basis, detrend, device="cpu", dtype=torch.float64)
+            theta = ref.link(ref.sample_priors(torch.Generator().manual_seed(12), CHAINS))
+            out = _card_evaluation(label, kk, osk, model, ref, theta)
+            launches = out["launches"]
+            # the orbit is fixed (D = 2: the jitter and the mass), so no
+            # gradient reaches the orbit solve: the forward alone runs
+            expected = ({"kepler_solve": 1, "orbit_solve_fwd": 0} if basis == ABSOLUTE
+                        else {"kepler_solve": 0, "orbit_solve_fwd": 1, "orbit_solve_bwd": 0})
+            if any(launches[k] != v for k, v in expected.items()):
+                raise AssertionError(f"{label}: launches {launches}, expected {expected}")
+            res.setdefault("runs", {})[(basis, detrend)] = out
+    res["seconds"] = time.perf_counter() - t0
+    log(f"dr4 phase: {res['seconds']:.2f} s")
+    return res
+
+
+HGCA_SPAN = (47600.0, 59500.0)  # MJD: the Hipparcos mission to the last astrometry epoch
+DR4_SPAN = (57000.0, 58500.0)
+
+
+def absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod) -> dict:
+    """The orbit bases, the Hipparcos, HGCA linear-fit and Gaia DR4 paths
+    (their data in a temporary directory), then the standalone Kepler
+    kernel held to its twin at every shape they launched it with, and the
+    fused pair against its plain versions at the HGCA fit's (CHAINS, 192)
+    in float32 and the DR4 evaluations' (CHAINS, DR4_EPOCHS) in float64."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    res = {"bases": bases_phase(ot, kk, osk)}
+    with tempfile.TemporaryDirectory() as directory:
+        res["hip"] = hip_path_phase(ot, kk, osk, directory)
+        t_step = time.perf_counter()
+        res["hip_kepler"] = kepler_path_phase(kk, kepler_mod, res["hip"]["kepler_shapes"],
+                                              (torch.float64,))
+        log(f"hipparcos Kepler step: {time.perf_counter() - t_step:.2f} s")
+        res["hgca"] = hgca_path_phase(ot, kk, osk, directory)
+    res["dr4"] = dr4_path_phase(ot, kk, osk)
+    t_step = time.perf_counter()
+    shapes = {}
+    for out in (*res["bases"]["runs"].values(), res["hgca"]["absolute"],
+                *res["dr4"]["runs"].values()):
+        for shape, count in out["kepler_shapes"].items():
+            shapes[shape] = shapes.get(shape, 0) + count
+    res["other_kepler_shapes"] = shapes
+    res["other_kepler"] = kepler_path_phase(kk, kepler_mod, shapes, (torch.float64,))
+    hgca_epochs = res["hgca"]["model"].n_epochs
+    res["hgca_shape"] = f"({CHAINS}, {hgca_epochs})"
+    res["dr4_shape"] = f"({CHAINS}, {DR4_EPOCHS})"
+    res["pair"] = orbit_shapes_phase(
+        osk, elements, ((res["hgca_shape"], CHAINS, hgca_epochs, HGCA_SPAN, None),),
+        (torch.float32,))
+    pair64 = orbit_shapes_phase(
+        osk, elements, ((res["dr4_shape"], CHAINS, DR4_EPOCHS, DR4_SPAN, None),),
+        (torch.float64,))
+    for part in ("fwd", "bwd"):
+        res["pair"][part].update(pair64[part])
+    log(f"absolute-astrometry kernel step: {time.perf_counter() - t_step:.2f} s")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"absolute-astrometry phases: {res['seconds']:.2f} s")
+    return res
+
+
+def absolute_kernel_keys(kernels, res) -> None:
+    """The absolute-astrometry paths' entries of the `kernels` line: every
+    kernel's launches on each new path (`hip_line_launches` for the
+    catalog fit, `hip_launches` for the mass fit); the Kepler kernel at the
+    mass fit's per-evaluation shape (float64) under `hip_*` and at the other
+    paths' shapes under `absolute_shapes`; the fused pair at the HGCA fit's shape (float32)
+    under `hgca_*` and at the DR4 evaluations' (float64) under `dr4_*`."""
+    f32, f64 = torch.float32, torch.float64
+    bases = res["bases"]["runs"]
+    dr4 = res["dr4"]["runs"]
+    for k in kernels:
+        name = k["name"]
+        k["bases_launches"] = {b: out["launches"].get(name, 0) for b, out in bases.items()}
+        k["hip_launches"] = res["hip"]["launches"].get(name, 0)
+        k["hip_line_launches"] = res["hip"]["line"]["launches"].get(name, 0)
+        k["hgca_launches"] = res["hgca"]["launches"].get(name, 0)
+        k["hgca_absolute_launches"] = res["hgca"]["absolute"]["launches"].get(name, 0)
+        k["dr4_launches"] = {f"{b}{' detrended' if d else ''}": out["launches"].get(name, 0)
+                             for (b, d), out in dr4.items()}
+        if name == "kepler_solve":
+            # the shape of every evaluation of the mass fit
+            hip_shape = (CHAINS, res["hip"]["model"].n_epochs)
+            row = res["hip_kepler"][(hip_shape, f64)]
+            bnd = bound_ms(24 * row["n"], OPS_KEPLER * row["n"], f64)
+            k.update({"hip_shape": str(hip_shape), "hip_dtype": "float64",
+                      "hip_launch_shapes": {str(sh): c for sh, c in
+                                            res["hip"]["kepler_shapes"].items()},
+                      "hip_max_abs_err": row["err"], "hip_ms": row["ms"],
+                      "hip_plain_ms": row["plain_ms"], "hip_bound_ms": bnd[0],
+                      "hip_bound_by": bnd[1]})
+            shapes = {}
+            for shape, count in res["other_kepler_shapes"].items():
+                row = res["other_kepler"][(shape, f64)]
+                bnd = bound_ms(24 * row["n"], OPS_KEPLER * row["n"], f64)
+                shapes[str(shape)] = {"dtype": "float64", "launches": count,
+                                      "max_abs_err": row["err"], "ms": row["ms"],
+                                      "plain_ms": row["plain_ms"], "bound_ms": bnd[0],
+                                      "bound_by": bnd[1]}
+            k["absolute_shapes"] = shapes
+        elif name.startswith("orbit_solve"):
+            part = name.removeprefix("orbit_solve_")
+            for key, shape, dtype, b, t in (
+                    ("hgca", res["hgca_shape"], f32, CHAINS, res["hgca"]["model"].n_epochs),
+                    ("dr4", res["dr4_shape"], f64, CHAINS, DR4_EPOCHS)):
+                row = res["pair"][part][(shape, dtype)]
+                words = (8 * b + t + 14 * b * t if part == "fwd"
+                         else 8 * b + t + 15 * b * t + 8 * b)
+                ops = (OPS_ORBIT_FWD if part == "fwd" else OPS_ORBIT_BWD) * b * t
+                bnd = bound_ms(dtype.itemsize * words, ops, dtype)
+                k.update({f"{key}_shape": shape, f"{key}_dtype": str(dtype).removeprefix("torch."),
+                          f"{key}_max_abs_err": row["err"], f"{key}_ms": row["ms"],
+                          f"{key}_plain_ms": row["plain_ms"], f"{key}_bound_ms": bnd[0],
+                          f"{key}_bound_by": bnd[1]})
+
+
 def main() -> int:
+    t_main = time.perf_counter()
+
+    def elapsed(after):
+        log(f"elapsed {time.perf_counter() - t_main:.1f} s after {after}")
+
     name, _ = device_phase()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import octofitter_tpu_torch as ot
@@ -2195,27 +3038,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase([kk.SOURCE, osk.SOURCE, cc.SOURCE])
+    elapsed("build_phase")
     kres = kernel_phase(kk, kepler_mod._markley, CHAINS)
+    elapsed("kernel_phase")
     ores = orbit_phase(osk, elements, CHAINS)
+    elapsed("orbit_phase")
     main = main_path_phase(ot, kk, osk, CHAINS, ADAPTATION, ITERATIONS)
+    elapsed("main_path_phase")
     pres = kepler_path_phase(kk, kepler_mod, main["kepler_shapes"])
+    elapsed("kepler_path_phase")
     fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
+    elapsed("fused_vs_composed_phase")
     nuts = nuts_path_phase(ot, kk, osk, main["model"])
+    elapsed("nuts_path_phase")
     joint = joint_path_phase(ot, kk, osk, CHAINS, JOINT_ADAPTATION, JOINT_ITERATIONS)
+    elapsed("joint_path_phase")
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
+    elapsed("kepler_path_phase")
     pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
+    elapsed("pt_path_phase")
     ptres = kepler_path_phase(kk, kepler_mod, pt["kepler_shapes"])
+    elapsed("kepler_path_phase")
     pt_nuts = pt_nuts_phase(ot, kk, osk, pt["model"])
+    elapsed("pt_nuts_phase")
     rej = rejection_phase(ot, kk, osk)
+    elapsed("rejection_phase")
     rres = kepler_path_phase(kk, kepler_mod, rej["kepler_shapes"])
+    elapsed("kepler_path_phase")
     diagnostics_phase(ot, [("headline", main["x"]), ("joint", joint["x"])])
+    elapsed("diagnostics_phase")
     cal = calibration_phase(ot, kk, osk)
+    elapsed("calibration_phase")
     cres = kepler_path_phase(kk, kepler_mod, cal["kepler_shapes"])
+    elapsed("kepler_path_phase")
     outlier = outlier_phase(ot, kk, osk, cal["model"])
+    elapsed("outlier_phase")
     cap = cap_phase(ot, kk, osk)
+    elapsed("cap_phase")
     dres = discrete_kernel_phase(osk, elements)
+    elapsed("discrete_kernel_phase")
     rvgp = rvgp_phase(ot, kk, osk)
+    elapsed("rvgp_phase")
     gres = rvgp["kepler_rows"]
+    absolute = absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod)
+    elapsed("absolute_astrometry_phases")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -2435,6 +3301,7 @@ def main() -> int:
             "rvgp_laplace": rvgp["laplace"],
         })
     kernels[-1]["associative"] = rvgp["extra"]["assoc"]
+    absolute_kernel_keys(kernels, absolute)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,11 @@
 """octofitter_tpu_torch: the PyTorch + CUDA port of octofitter_tpu.
 
 The same model-building API as the JAX package (`Planet`, `System`,
-`UniformCircular`, `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the RV
+`UniformCircular`, the orbit bases (Visual, Thiele-Innes, RV,
+`AbsoluteVisual{KepOrbit}`, Cartesian, FixedPosition, hyperbolic),
+`PlanetRelAstromObs`, `HGCAInstantaneousObs`, the absolute-astrometry
+likelihoods (`HipparcosIADObs`, the HGCA linear-fit `HGCAObs`,
+`GaiaDR4AstromObs`; `astrom/`, without G23H), the RV
 likelihoods with Gaussian-process noise (dense kernels and celerite
 terms) and the RV archive loaders, the continuous priors,
 `LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
@@ -33,6 +37,7 @@ from .orbits import (
     VisualOrbit,
     ThieleInnesOrbit,
     RadialVelocityOrbit,
+    AbsoluteVisualOrbit,
     orbitsolve,
     kepler_solver,
 )
@@ -57,6 +62,17 @@ from .likelihoods import (
     HGCAInstantaneousObs,
     HGCAInstantaneousLikelihood,
     gaia_plx,
+)
+from . import astrom
+from .astrom import (
+    HipparcosIADObs,
+    HipparcosIADLikelihood,
+    GaiaCatalogFitObs,
+    GaiaCatalogFitLikelihood,
+    HGCAObs,
+    HGCALikelihood,
+    GaiaDR4AstromObs,
+    GaiaDR4Astrom,
 )
 from . import rv
 from .rv import (

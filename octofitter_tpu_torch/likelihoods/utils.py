@@ -31,13 +31,18 @@ def gauss_logpdf(resid, sigma):
 
 
 def take_epochs(sol: OrbitSolution, start: int, n: int) -> OrbitSolution:
-    """Slice the epoch axis (the last) of a batched OrbitSolution."""
+    """Slice the epoch axis (the last) of a batched OrbitSolution, and of
+    its `compensated` block where it has one."""
     sliced = {
         f.name: getattr(sol, f.name)[..., start : start + n]
         for f in dataclasses.fields(sol)
-        if f.name != "elem"
+        if f.name not in ("elem", "compensated")
     }
-    return OrbitSolution(elem=sol.elem, **sliced)
+    comp = sol.compensated
+    if comp is not None:
+        comp = type(comp)(**{f.name: getattr(comp, f.name)[..., start : start + n]
+                             for f in dataclasses.fields(comp)})
+    return OrbitSolution(elem=sol.elem, compensated=comp, **sliced)
 
 
 def row_shape(ctx) -> tuple:

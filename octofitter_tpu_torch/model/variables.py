@@ -29,7 +29,16 @@ import numpy as np
 import torch
 
 from ..distributions import Distribution, LogNormal, Normal
-from ..orbits import KepOrbit, RadialVelocityOrbit, ThieleInnesOrbit, VisualOrbit
+from ..orbits import (
+    AbsoluteVisualOrbit,
+    CartesianOrbit,
+    FixedPositionOrbit,
+    HyperbolicOrbit,
+    KepOrbit,
+    RadialVelocityOrbit,
+    ThieleInnesOrbit,
+    VisualOrbit,
+)
 from .params import Params
 
 
@@ -344,8 +353,15 @@ _BASIS_MAP = {
     "KepOrbit": KepOrbit,
     "Visual{KepOrbit}": VisualOrbit,
     "VisualOrbit": VisualOrbit,
+    "AbsoluteVisual{KepOrbit}": AbsoluteVisualOrbit,
+    "AbsoluteVisualOrbit": AbsoluteVisualOrbit,
     "ThieleInnesOrbit": ThieleInnesOrbit,
     "RadialVelocityOrbit": RadialVelocityOrbit,
+    "CartesianOrbit": CartesianOrbit,
+    "FixedPosition": FixedPositionOrbit,
+    "Visual{FixedPosition}": FixedPositionOrbit,
+    "HyperbolicOrbit": HyperbolicOrbit,
+    "Hyperbolic{KepOrbit}": HyperbolicOrbit,
 }
 
 

@@ -13,7 +13,11 @@ are the same (see that module's docstring):
 
 The chain axis is written out: every element field is a tensor of one
 batch shape B (``()`` for one orbit, ``(C,)`` for C chains), and
-``orbitsolve(elem, t)`` returns fields of shape ``B + t.shape``.
+``orbitsolve(elem, t)`` returns fields of shape ``B + t.shape``. The other
+bases (`absolute_visual.py`, `extra_bases.py`) keep that contract; an
+AbsoluteVisual orbit solves Kepler's equation at each chain's own emission
+epochs, of shape ``B + t.shape``, which `_solve_common` takes with
+``epoch_ndim=t.ndim``.
 
 ``orbitsolve`` has two paths for a `KepOrbit` or `VisualOrbit`, chosen by
 its ``fused`` argument. The fused path, the default, is the `_OrbitSolve`
@@ -164,12 +168,15 @@ def _resolve_aliases(kw, device):
 # --------------------------------------------------------------------------
 
 def semimajoraxis(elem):
-    """Semi-major axis in AU (for TI orbits, derived from A,B,F,G & plx)."""
+    """Semi-major axis in AU (for TI orbits, derived from A,B,F,G & plx;
+    0 for the bases without one, as FixedPosition)."""
     if isinstance(elem, ThieleInnesOrbit):
         u = (elem.A**2 + elem.B**2 + elem.F**2 + elem.G**2) / 2
         v = elem.A * elem.G - elem.B * elem.F
         alpha = torch.sqrt(u + torch.sqrt((u + v) * (u - v)))  # [mas]
         return alpha / elem.plx
+    if not hasattr(elem, "a"):
+        return torch.zeros((), dtype=elem.plx.dtype, device=elem.plx.device)
     return elem.a
 
 
@@ -268,19 +275,28 @@ class OrbitSolution:
     pmra_masyr: torch.Tensor
     pmdec_masyr: torch.Tensor
     radvel_ms: torch.Tensor
+    # AbsoluteVisual orbits attach the propagated barycentric astrometry
+    # here (an `absolute_visual.Compensated`, fields of shape B + t.shape);
+    # None for the other bases
+    compensated: object = None
 
 
-def _per_epoch(x, t):
-    """Give a batch-shaped element field trailing unit axes for t's axes."""
-    return x.reshape(x.shape + (1,) * t.ndim)
+def _per_epoch(x, t, epoch_ndim=None):
+    """Give a batch-shaped element field trailing unit axes for the epoch
+    axes: all of t's by default, or its last `epoch_ndim` where t carries
+    the batch axes too (an AbsoluteVisual orbit's per-chain epochs)."""
+    n = t.ndim if epoch_ndim is None else epoch_ndim
+    return x.reshape(x.shape + (1,) * n)
 
 
-def _solve_common(elem, t, a, e):
-    """Kepler solve + in-plane coords shared by all element types."""
-    a, e = _per_epoch(a, t), _per_epoch(e, t)
-    P = torch.sqrt(a**3 / _per_epoch(elem.M, t)) * KEPLER_YEAR_DAYS
+def _solve_common(elem, t, a, e, epoch_ndim=None):
+    """Kepler solve + in-plane coords shared by all element types. The
+    epochs t are shared by every orbit of the batch, or with `epoch_ndim`
+    (the number of epoch axes) one set per orbit, of shape B + T."""
+    a, e = _per_epoch(a, t, epoch_ndim), _per_epoch(e, t, epoch_ndim)
+    P = torch.sqrt(a**3 / _per_epoch(elem.M, t, epoch_ndim)) * KEPLER_YEAR_DAYS
     n = 2 * math.pi / P                         # rad/day
-    MA = n * (t - _per_epoch(elem.tp, t))
+    MA = n * (t - _per_epoch(elem.tp, t, epoch_ndim))
     EA = kepler_solver(MA, e)
     sE, cE = torch.sin(EA), torch.cos(EA)
     sq = torch.sqrt(1 - e**2)
@@ -509,8 +525,10 @@ def orbitsolve(elem, t, *, fused=True):
     derivatives with respect to the elements only and raises on a second
     derivative, under `torch.func`, or for epochs that require a gradient:
     `fused=False` asks for the composed torch ops, which have all of these.
-    The other element types have only the composed path."""
-    ref = elem.e
+    The other element types have only the composed path, which they take
+    whatever `fused` says."""
+    other = _other_solvers().get(type(elem))
+    ref = elem.e if other is None else elem.plx
     t = torch.as_tensor(t, dtype=ref.dtype, device=ref.device)
 
     if isinstance(elem, (KepOrbit, VisualOrbit)):
@@ -554,6 +572,9 @@ def orbitsolve(elem, t, *, fused=True):
         raoff = decoff = pmra = pmdec = nanlike
         radvel = vz * AUDAY_TO_MS
 
+    elif other is not None:
+        return other(elem, t)
+
     else:
         raise TypeError(f"Unsupported orbit element type {type(elem).__name__}")
 
@@ -563,6 +584,19 @@ def orbitsolve(elem, t, *, fused=True):
         raoff_mas=raoff, decoff_mas=decoff,
         pmra_masyr=pmra, pmdec_masyr=pmdec, radvel_ms=radvel,
     )
+
+
+def _other_solvers() -> dict:
+    """{element type: its solve} for the bases of `absolute_visual.py` and
+    `extra_bases.py`, which import this module."""
+    from .absolute_visual import AbsoluteVisualOrbit, orbitsolve_absolute
+    from .extra_bases import (
+        CartesianOrbit, FixedPositionOrbit, HyperbolicOrbit, orbitsolve_cartesian,
+        orbitsolve_fixed, orbitsolve_hyperbolic,
+    )
+
+    return {AbsoluteVisualOrbit: orbitsolve_absolute, CartesianOrbit: orbitsolve_cartesian,
+            FixedPositionOrbit: orbitsolve_fixed, HyperbolicOrbit: orbitsolve_hyperbolic}
 
 
 # --------------------------------------------------------------------------

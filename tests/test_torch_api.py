@@ -37,7 +37,8 @@ import chip_smoke
 
 # The names of APPENDIX_A that the port exports (27 before the discrete
 # slice, which added the next 8; the RV-GP slice added the RV archive
-# loaders and radvel_posterior, the last 7).
+# loaders and radvel_posterior, the next 7; the absolute-astrometry slice
+# the last 6).
 PORTED = [
     "Planet", "System", "UniformCircular", "Sine", "KDEDist", "theta_at_epoch_to_tperi",
     "ofti_linear_solve", "likelihoodname", "PlanetRelAstromObs", "PlanetRelAstromLikelihood",
@@ -49,6 +50,8 @@ PORTED = [
     "drawfrompriors", "sample_priors", "initialize", "startingpoints", "generate_from_params",
     "describe", "savechain", "loadchain", "HARPS_RVBank_rvs", "HARPS_DR1_rvs", "HIRES_rvs",
     "Lick_rvs", "CES_lc_rvs", "CES_vlc_rvs", "radvel_posterior",
+    "HGCAObs", "HGCALikelihood", "HipparcosIADObs", "HipparcosIADLikelihood",
+    "GaiaDR4AstromObs", "GaiaDR4Astrom",
 ]
 
 
@@ -218,6 +221,15 @@ def test_default_device_of_the_orbit_entry_points_is_the_gpu():
                                                          tp=57000.0, M=1.2, plx=50.0),
                  lambda: ot.RadialVelocityOrbit.from_params(a=7.0, e=0.2, omega=1.0,
                                                             tp=57000.0, M=1.2),
+                 lambda: ot.AbsoluteVisualOrbit.from_params(**kw, ra=68.0, dec=-51.0,
+                                                            pmra=0.0, pmdec=0.0,
+                                                            ref_epoch=57000.0),
+                 lambda: ot.orbits.CartesianOrbit.from_params(x=1.0, y=1.0, z=1.0, vx=0.0,
+                                                              vy=0.0, vz=0.0, M=1.0, plx=50.0),
+                 lambda: ot.orbits.FixedPositionOrbit.from_params(x=1.0, y=1.0, plx=50.0),
+                 lambda: ot.orbits.HyperbolicOrbit.from_params(a=-5.0, e=1.5, i=0.5, omega=0.7,
+                                                               Omega=1.2, tp=57000.0, M=1.3,
+                                                               plx=40.0),
                  lambda: ot.kepler_solver(0.5, 0.1),
                  lambda: ot.orbits.kepler_solver_hyperbolic(0.5, 1.5)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -232,6 +244,51 @@ def test_default_device_of_the_orbit_entry_points_is_the_gpu():
     kept = ot.VisualOrbit.from_params(**dict(kw, a=torch.tensor(7.0)))
     assert kept.e.device.type == "cpu"
     assert ot.kepler_solver(torch.tensor([0.5]), 0.1).shape == (1,)
+
+
+# every basis string of the JAX package's `_BASIS_MAP`, with one orbit's
+# elements (numbers, on the CPU)
+BASIS_ELEMENTS = {
+    "KepOrbit": dict(a=7.0, e=0.2, i=0.6, omega=1.0, Omega=2.0, tp=57000.0, M=1.2),
+    "Visual{KepOrbit}": dict(chip_smoke.TRUE),
+    "VisualOrbit": dict(chip_smoke.TRUE),
+    "AbsoluteVisual{KepOrbit}": dict(chip_smoke.TRUE, ra=68.0, dec=-51.0, pmra=-5.0,
+                                     pmdec=10.0, ref_epoch=57000.0),
+    "AbsoluteVisualOrbit": dict(chip_smoke.TRUE, ra=68.0, dec=-51.0, pmra=-5.0, pmdec=10.0,
+                                ref_epoch=57000.0, rv=1e4),
+    "ThieleInnesOrbit": dict(e=0.2, A=1.0, B=2.0, F=3.0, G=4.0, tp=57000.0, M=1.2, plx=50.0),
+    "RadialVelocityOrbit": dict(a=7.0, e=0.2, omega=1.0, tp=57000.0, M=1.2),
+    "CartesianOrbit": dict(x=3.0, y=1.0, z=0.5, vx=-0.002, vy=0.005, vz=0.001, M=1.2,
+                           tref=57000.0, plx=50.0),
+    "FixedPosition": dict(sep=500.0, pa=0.8, plx=50.0),
+    "Visual{FixedPosition}": dict(x=3.0, y=-2.0, plx=50.0),
+    "HyperbolicOrbit": dict(a=-5.0, e=1.5, i=0.5, omega=0.7, Omega=1.2, tp=57000.0, M=1.3,
+                            plx=40.0),
+    "Hyperbolic{KepOrbit}": dict(a=-5.0, e=1.5, i=0.5, omega=0.7, Omega=1.2, tp=57000.0,
+                                 M=1.3, plx=40.0),
+}
+
+
+@pytest.mark.parametrize("basis", sorted(BASIS_ELEMENTS))
+def test_basis_strings_resolve_and_solve(basis):
+    """Each basis string resolves to the class of the JAX package's name,
+    and `orbitsolve` solves its elements (no TypeError) with every field
+    finite (a KepOrbit's sky fields, a RadialVelocityOrbit's sky ones
+    excepted: NaN by convention) and of the epochs' shape."""
+    from octofitter_tpu.model.variables import resolve_basis as resolve_j
+    from octofitter_tpu_torch.model.variables import resolve_basis
+
+    cls = resolve_basis(basis)
+    assert cls.__name__ == resolve_j(basis).__name__
+    sol = ot.orbitsolve(cls.from_params(device="cpu", **BASIS_ELEMENTS[basis]),
+                        np.linspace(56000.0, 58000.0, 5))
+    assert sol.EA.shape == (5,)
+    sky = ("raoff_mas", "decoff_mas", "pmra_masyr", "pmdec_masyr")
+    nan_fields = {"KepOrbit": sky, "RadialVelocityOrbit": sky + ("posx", "posy", "vx", "vy")}
+    for f in dataclasses.fields(sol):
+        value = getattr(sol, f.name)
+        if isinstance(value, torch.Tensor) and f.name not in nan_fields.get(basis, ()):
+            assert bool(torch.isfinite(value).all()), (basis, f.name)
 
 
 def test_per_epoch_tells_rows_from_epochs():

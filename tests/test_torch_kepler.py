@@ -216,3 +216,39 @@ def test_kernel_matches_twin_on_gpu():
         assert kk.launch_shapes.get((1, 12), 0) >= 1
         assert torch.equal(E_row[0], kepler_solver(Mt[:12], et[:1].repeat(12)))
         assert float((E_row - _markley(Mt[:12][None, :], et[:1, None])).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_at_the_absolute_visual_shape():
+    """The AbsoluteVisual{KepOrbit} solve on the card (the Hipparcos path's
+    4096 chains x 134 epochs, float64): each chain's emission epochs (C, T)
+    and its eccentricity expanded over them reach the kernel in one launch,
+    whose E is held to the plain twin at those inputs (1e-12, growing with
+    |M|/50 past |M| = 50, as in chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import octofitter_tpu_torch as ot
+    from octofitter_tpu_torch.orbits.kernels import kepler as kk
+
+    C, T = 4096, 134
+    rng = np.random.default_rng(3)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device="cuda")  # noqa: E731
+    elem = ot.AbsoluteVisualOrbit(
+        a=as_t(rng.uniform(2.0, 30.0, C)), e=as_t(rng.uniform(0.0, 0.99, C)),
+        i=as_t(rng.uniform(0.0, np.pi, C)), omega=as_t(rng.uniform(0, 2 * np.pi, C)),
+        Omega=as_t(rng.uniform(0, 2 * np.pi, C)), tp=as_t(rng.uniform(47000, 58000, C)),
+        M=as_t(rng.uniform(0.5, 2.0, C)), plx=as_t(rng.uniform(10.0, 100.0, C)),
+        ra=as_t(68.0), dec=as_t(-51.0), rv=as_t(rng.uniform(-3e4, 3e4, C)),
+        pmra=as_t(rng.uniform(-100, 100, C)), pmdec=as_t(rng.uniform(-100, 100, C)),
+        ref_epoch=as_t(48348.5625))
+    epochs = np.sort(rng.uniform(47500.0, 58500.0, T))
+    before = kk.launches
+    sol = ot.orbitsolve(elem, epochs)
+    torch.cuda.synchronize()
+    assert kk.launches == before + 1 and kk.launch_shapes.get((C, T), 0) >= 1
+    t_em = sol.compensated.t_em_days
+    n = 2 * np.pi / (torch.sqrt(elem.a**3 / elem.M) * ot.constants.KEPLER_YEAR_DAYS)
+    MA = n[:, None] * (t_em - elem.tp[:, None])
+    E_t = _markley(MA, elem.e[:, None].expand(C, T))
+    scale = (MA.abs() / 50.0).clamp(min=1.0)
+    assert float(((sol.EA - E_t).abs() / scale).max()) <= 1e-12
