@@ -94,6 +94,13 @@ def _unit_vectors(ra_rad, dec_rad):
     return rhat, phat, qhat
 
 
+def _deg(rad):
+    """Radians to degrees for the propagated ra2 and dec2, the one place
+    where the absolute position is rounded to degrees; a check of two
+    evaluations' agreement replaces it to move every result by an ulp."""
+    return torch.rad2deg(rad)
+
+
 def propagate_astrometry(elem: AbsoluteVisualOrbit, t) -> Compensated:
     """Epoch-propagate the barycentre to MJD t (shared by every chain);
     returns Compensated with fields of shape B + t.shape."""
@@ -137,8 +144,8 @@ def propagate_astrometry(elem: AbsoluteVisualOrbit, t) -> Compensated:
     t_em = t - (d_t - _per_epoch(d0, t)) * PC_LT_DAYS
 
     return Compensated(
-        ra2=torch.rad2deg(ra_t),
-        dec2=torch.rad2deg(dec_t),
+        ra2=_deg(ra_t),
+        dec2=_deg(dec_t),
         parallax2=1000.0 / d_t,
         pmra2=pmra_t,
         pmdec2=pmdec_t,

@@ -7,16 +7,19 @@ scan law of tests/test_astrom.py, which `chip_smoke.write_synth_iad` and
 write the same bytes). Held to the JAX functions: the IAD parser and the
 corruption correction, `load_gost_csv`, the 4/5-parameter fits (values and
 gradients, with and without weights and per-scan sigma), the Hippacentre,
-the `ln_like` and its gradient of `HipparcosIADObs`, `HGCAObs` (Visual and
-AbsoluteVisual, with `missed_transits`) and `GaiaDR4AstromObs` (both
-branches, detrend on and off) at 16 points shared through
-`interop.load_jax_state` (ln_like within 1e-9 of max(|ln_like|, 1), each
-point's gradient within 1e-7 of its largest entry, plus 16 times what one
-ulp of the propagated degrees moves them by on AbsoluteVisual{KepOrbit}:
-`chip_smoke.hold_values_and_gradients`), a rejected IAD row
-beside a zero-mass companion (a finite gradient, equal to JAX's),
+the likelihoods of `HipparcosIADObs`, `HGCAObs` (Visual and AbsoluteVisual,
+with `missed_transits`) and `GaiaDR4AstromObs` (both branches, detrend on
+and off) through the ln_post and gradient of models that hold them, at 16
+points shared through `interop.load_jax_state` (ln_post within 1e-9 of
+max(|ln_post|, 1), each point's gradient within 1e-7 of its largest entry,
+plus 16 times what one ulp of the propagated degrees moves them by on
+AbsoluteVisual{KepOrbit}: `chip_smoke.hold_values_and_gradients`), that
+comparison failing on the Hipparcos model with a planted fault, a rejected
+IAD row beside a zero-mass companion (a finite gradient, equal to JAX's),
 `generate_from_params` at the truth, the Hessian through the fits under
-`torch.func`, and a short CPU fit of the HGCA model (8 chains).
+`torch.func`, and a short CPU fit of the HGCA model (8 chains). Each JAX
+model is built once (building one compiles its ln_post and gradient) and
+evaluated by those compiled functions, one point at a time.
 """
 
 import filecmp
@@ -36,6 +39,8 @@ from octofitter_tpu_torch.interop import load_jax_state
 
 import chip_smoke
 import test_astrom
+from test_torch_orbit_bases import (hold_against_jax, jax_ln_post_and_grad, planted_fault,
+                                    shared_prior_draws)
 
 VALUE_TOL, GRAD_TOL = chip_smoke.ABS_VALUE_TOL, chip_smoke.ABS_GRAD_TOL
 N_ORBITS = 30    # the IAD of the CPU tests: 60 abscissae
@@ -236,8 +241,7 @@ def test_hippacentre_combined_matches_jax():
 def _shared_points(mj, mt, n=16, near=None, seed=3):
     """`n` unconstrained points: half near `near` (natural space) where
     given, the rest prior draws, set on the port model by load_jax_state."""
-    draws = np.array(jax.vmap(lambda k: mj.link(mj.sample_priors(k)))(
-        jax.random.split(jax.random.PRNGKey(seed), n)))
+    draws = shared_prior_draws(mj, n, seed)
     if near is not None:
         n_near = n // 2
         rng = np.random.default_rng(seed)
@@ -248,44 +252,42 @@ def _shared_points(mj, mt, n=16, near=None, seed=3):
     return mt.starting_points
 
 
-def _hold_ln_like(mj, mt, pts, min_finite=8):
-    """ln_like of the structured parameters at `pts` and its gradient with
-    respect to the unconstrained points, in both packages, held by
-    `chip_smoke.hold_values_and_gradients` (with the port's
-    `ulp_sensitivity`, zero off AbsoluteVisual{KepOrbit})."""
-    def f_j(th):
-        return mj.ln_like_nt(mj.arr2nt(mj.invlink(th)))
-
-    def f_t(th):
-        th = th.clone().requires_grad_(True)
-        v = mt.ln_like_nt(mt.arr2nt(mt.invlink(th)))
-        (g,) = torch.autograd.grad(v.sum(), th)
-        return v.detach(), g
-
-    vj, gj = jax.jit(jax.vmap(jax.value_and_grad(f_j)))(jnp.asarray(pts.numpy()))
-    vt, gt = f_t(pts)
-    dv, dg = chip_smoke.ulp_sensitivity(f_t, pts)
+def _hold_ln_post(mj, mt, pts, min_finite=8):
+    """ln_post and its gradient with respect to the unconstrained points
+    `pts`, in both packages (the JAX model's own compiled function at each
+    point), held by `chip_smoke.hold_values_and_gradients` with the port's
+    `ulp_sensitivity` (zero off AbsoluteVisual{KepOrbit})."""
+    vj, gj = jax_ln_post_and_grad(mj, pts)
+    dv, dg = chip_smoke.ulp_sensitivity(mt.ln_post_and_grad, pts)
+    vt, gt = mt.ln_post_and_grad(pts)
     fin = torch.isfinite(vt)
     assert int(fin.sum()) >= min_finite
     assert bool(torch.isfinite(gt[fin]).all())
-    chip_smoke.hold_values_and_gradients("ln_like", vt, gt, torch.as_tensor(np.asarray(vj)),
-                                         torch.as_tensor(np.asarray(gj)), dv, dg)
+    chip_smoke.hold_values_and_gradients("ln_post", vt, gt, vj, gj, dv, dg)
     return vt.numpy(), gt.numpy()
+
+
+HIP_NEAR = [1.75, 5.0, 50.0, -5.0, 10.0, 0.0, 0.0, 10.0, 0.1, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0]
 
 
 @pytest.fixture(scope="module")
 def hip_models(files):
+    """The Hipparcos mass model in both packages, its 16 shared points, the
+    JAX package's ln_post and gradient there, and what one ulp of the
+    propagated degrees moves the port's by."""
     data = {"iad_file": files["iad_file"], "astrom": chip_smoke.HIP_ASTROM}
     mj = chip_smoke.build_hip_mass_model(oc, data, jnp)
     mt = chip_smoke.build_hip_mass_model(ot, data, torch, device="cpu")
-    return mj, mt
+    pts = _shared_points(mj, mt, near=HIP_NEAR)
+    vj, gj = jax_ln_post_and_grad(mj, pts)
+    dv, dg = chip_smoke.ulp_sensitivity(mt.ln_post_and_grad, pts)
+    return mj, mt, pts, (vj, gj, dv, dg)
 
 
 def test_hipparcos_ln_like_matches_jax(hip_models):
-    mj, mt = hip_models
-    near = [1.75, 5.0, 50.0, -5.0, 10.0, 0.0, 0.0, 10.0, 0.1, 1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0]
-    pts = _shared_points(mj, mt, near=near)
-    _hold_ln_like(mj, mt, pts)
+    mj, mt, pts, ref = hip_models
+    assert int(torch.isfinite(ref[0]).sum()) >= 8
+    hold_against_jax(mt, pts, *ref)
     # each scan's value, and a subset of the scans
     obs_t, obs_j = mt.system.observations[0], mj.system.observations[0]
     nt_t = mt.arr2nt(mt.invlink(pts))
@@ -318,6 +320,20 @@ def test_hipparcos_ln_like_matches_jax(hip_models):
         assert _rel(sub.ln_like(ctx_s).numpy(), pw_t[:, idx].sum(-1)) <= 1e-12
 
 
+@pytest.mark.parametrize("fault", ["light_travel", "rv"])
+def test_planted_fault_fails_the_hipparcos_comparison(hip_models, fault):
+    """The comparison that holds AbsoluteVisual models, with its allowance
+    of 16 times what one ulp of the propagated degrees moves ln_post and
+    its gradient, rejects the Hipparcos mass model (c Eri's radial velocity
+    of 12.6 km/s) when its light-travel term or its radial velocity is
+    dropped. The model's chains share that radial velocity, so they share
+    their emission epochs: the pairing of each chain with its own is held
+    in tests/test_torch_orbit_bases.py."""
+    mj, mt, pts, ref = hip_models
+    with planted_fault(fault), pytest.raises(AssertionError, match="disagree"):
+        hold_against_jax(mt, pts, *ref)
+
+
 @pytest.fixture(scope="module")
 def hgca_data(tmp_path_factory):
     """The HGCA data of the CPU tests: the smoke's recipe (the catalog row
@@ -325,20 +341,34 @@ def hgca_data(tmp_path_factory):
     return chip_smoke.hgca_data(ot, tmp_path_factory.mktemp("hgca"), N_ORBITS, N_GOST)
 
 
-@pytest.mark.parametrize("basis", ["Visual{KepOrbit}", chip_smoke.ABSOLUTE])
-@pytest.mark.parametrize("missed", [None, [3.0, 17.0]], ids=["all_transits", "missed"])
-def test_hgca_ln_like_matches_jax(hgca_data, basis, missed):
-    """Both branches (the AbsoluteVisual one propagates the barycentre to the
-    channel epochs); `missed_transits` zeroes two Gaia scans. The
-    declination epochs and the nonlinear terms are moved off their
-    defaults, so that both take part."""
+@pytest.fixture(scope="module")
+def hgca_models(hgca_data):
+    """The HGCA model in both packages by (basis, missed transits), each
+    built once. The declination epochs and the nonlinear terms are moved
+    off their defaults, so that both take part."""
     data = dict(hgca_data, hgca=dict(hgca_data["hgca"], epoch_dec_hip=1991.31,
                                      epoch_dec_gaia=2016.1, nonlinear_dpmra=0.02,
                                      nonlinear_dpmdec=-0.01))
-    mj = chip_smoke.build_hgca_model(oc, data, basis, missed)
-    mt = chip_smoke.build_hgca_model(ot, data, basis, missed, device="cpu")
+    cache = {}
+
+    def get(basis="Visual{KepOrbit}", missed=None):
+        key = (basis, None if missed is None else tuple(missed))
+        if key not in cache:
+            cache[key] = (chip_smoke.build_hgca_model(oc, data, basis, missed),
+                          chip_smoke.build_hgca_model(ot, data, basis, missed, device="cpu"))
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("basis", ["Visual{KepOrbit}", chip_smoke.ABSOLUTE])
+@pytest.mark.parametrize("missed", [None, [3.0, 17.0]], ids=["all_transits", "missed"])
+def test_hgca_ln_like_matches_jax(hgca_models, basis, missed):
+    """Both branches (the AbsoluteVisual one propagates the barycentre to the
+    channel epochs); `missed_transits` zeroes two Gaia scans."""
+    mj, mt = hgca_models(basis, missed)
     pts = _shared_points(mj, mt, near=chip_smoke.hgca_truth(mt))
-    _hold_ln_like(mj, mt, pts)
+    _hold_ln_post(mj, mt, pts)
 
 
 def test_hgca_duplicated_missed_transit_is_minus_inf(hgca_data):
@@ -347,11 +377,10 @@ def test_hgca_duplicated_missed_transit_is_minus_inf(hgca_data):
     assert float(lp) == -np.inf
 
 
-def test_hgca_generate_matches_jax(hgca_data):
+def test_hgca_generate_matches_jax(hgca_models):
     """`generate_from_params` at the truth writes the JAX package's catalog
     row."""
-    mj = chip_smoke.build_hgca_model(oc, hgca_data)
-    mt = chip_smoke.build_hgca_model(ot, hgca_data, device="cpu")
+    mj, mt = hgca_models()
     truth = chip_smoke.hgca_truth(mt)
     row_j = generate_j(mj, mj.arr2nt(jnp.asarray(truth))).observations[0].hgca
     row_t = ot.generate_from_params(mt, mt.arr2nt(mt.tensor(truth))).observations[0].hgca
@@ -420,7 +449,7 @@ def test_dr4_ln_like_matches_jax(dr4_table, basis, detrend):
     mt = chip_smoke.build_dr4_model(ot, dr4_table, basis, detrend, device="cpu")
     truth = [chip_smoke.DR4_TRUTH[n] for n in mt.parameter_names]
     pts = _shared_points(mj, mt, near=truth)
-    _hold_ln_like(mj, mt, pts)
+    _hold_ln_post(mj, mt, pts)
 
 
 def test_dr4_generate_matches_jax(dr4_table):
@@ -466,19 +495,19 @@ def test_rejected_row_and_zero_mass_companion_give_a_finite_gradient(tmp_path):
     mt, hip_t = build(ot, device="cpu")
     assert hip_t.table["reject"].sum() == 1
     pts = _shared_points(mj, mt)
-    _, gt = _hold_ln_like(mj, mt, pts, min_finite=16)
+    _, gt = _hold_ln_post(mj, mt, pts, min_finite=16)
     assert np.all(np.isfinite(gt))
 
 
 def test_hgca_short_cpu_fit_recovers_the_mass(small_hgca):
     """tests/test_astrom.py:368-387 in the port: the small HGCA model, its
     catalog generated at 30 Mjup, refit from the truth by NUTS with 8
-    chains (50 + 50, max_depth 5); the posterior mean of b_mass within 4
-    sd of the truth."""
+    chains (30 + 30, max_depth 3: D = 3 and a near-Gaussian posterior);
+    the posterior mean of b_mass within 4 sd of the truth."""
     _, model = small_hgca
     start = model.link(model.tensor(SMALL_TRUTH)).expand(8, -1)
-    chain = ot.octofit(model, sampler="nuts", chains=8, adaptation=50, iterations=50,
-                       max_depth=5, verbosity=0, starting_points=start,
+    chain = ot.octofit(model, sampler="nuts", chains=8, adaptation=30, iterations=30,
+                       max_depth=3, verbosity=0, starting_points=start,
                        generator=torch.Generator().manual_seed(0))
     mass = np.asarray(chain["b_mass"]).ravel()
     pull = (mass.mean() - 30.0) / max(mass.std(), 1e-9)

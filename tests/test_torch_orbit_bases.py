@@ -10,11 +10,16 @@ motion and radial velocity differ (the JAX side is its one-orbit solve
 vmapped over the chains). Then the relative-astrometry model on each basis
 (`chip_smoke.build_basis_model`, both packages, one table) at 16 shared
 unconstrained points: ln_post within 1e-9 of max(|ln_post|, 1) and each
-point's gradient within 1e-7 of its largest entry, and the Laplace step's
-Hessian through the composed AbsoluteVisual solve against `jax.hessian`.
+point's gradient within 1e-7 of its largest entry; on AbsoluteVisual that
+comparison failing with each planted fault of the propagation (no
+light-travel term, no radial velocity, a chain paired with another's
+emission epochs); and the Laplace step's Hessian through the composed
+AbsoluteVisual solve against `jax.hessian`. Each JAX model is built once.
 """
 
+import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -200,22 +205,39 @@ def test_fused_flag_takes_the_composed_path(cls, elems):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
-@pytest.fixture(scope="module")
-def table():
-    return chip_smoke.bench_table(ot)
+@functools.lru_cache(maxsize=None)
+def _models(basis):
+    """The relative-astrometry model on `basis` in both packages, built
+    once per module (a JAX model compiles its ln_post and gradient when it
+    is built), and 16 unconstrained prior draws of the JAX model, carried
+    to the port's by interop."""
+    table = chip_smoke.bench_table(ot)
+    mj = chip_smoke.build_basis_model(oc, basis, table)
+    mt = chip_smoke.build_basis_model(ot, basis, table, device="cpu")
+    pts = shared_prior_draws(mj, 16, seed=4)
+    load_jax_state(mt, parameter_names=mj.parameter_names, starting_points=pts,
+                   laplace_sigma=np.eye(mj.D))
+    return mj, mt
+
+
+def shared_prior_draws(mj, n, seed):
+    """`n` unconstrained prior draws of the JAX model `mj`, one at a time
+    (the shapes its construction already compiled)."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    return np.stack([np.asarray(mj.link(mj.sample_priors(k))) for k in keys])
+
+
+def jax_ln_post_and_grad(mj, pts):
+    """The JAX model's own compiled ln_post_and_grad at each row of `pts`
+    (a CPU tensor), as CPU tensors (n,) and (n, D)."""
+    out = [mj.ln_post_and_grad(jnp.asarray(p)) for p in pts.numpy()]
+    return (torch.tensor([float(v) for v, _ in out], dtype=torch.float64),
+            torch.as_tensor(np.stack([np.asarray(g) for _, g in out])))
 
 
 @pytest.fixture(scope="module", params=chip_smoke.OTHER_BASES)
-def basis_models(request, table):
-    basis = request.param
-    mj = chip_smoke.build_basis_model(oc, basis, table)
-    mt = chip_smoke.build_basis_model(ot, basis, table, device="cpu")
-    pts = np.asarray(jax.vmap(lambda k: mj.link(mj.sample_priors(k)))(
-        jax.random.split(jax.random.PRNGKey(4), 16)))
-    # the starting points both packages share, carried across by interop
-    load_jax_state(mt, parameter_names=mj.parameter_names, starting_points=pts,
-                   laplace_sigma=np.eye(mj.D))
-    return basis, mj, mt
+def basis_models(request):
+    return (request.param, *_models(request.param))
 
 
 def test_basis_model_matches_jax(basis_models):
@@ -223,9 +245,9 @@ def test_basis_model_matches_jax(basis_models):
     each basis, at the 16 shared points."""
     basis, mj, mt = basis_models
     pts = mt.starting_points
-    vj, gj = jax.jit(jax.vmap(mj.ln_post_and_grad))(jnp.asarray(pts.numpy()))
+    vj, gj = (x.numpy() for x in jax_ln_post_and_grad(mj, pts))
     vt, gt = mt.ln_post_and_grad(pts)
-    vj, gj, vt, gt = np.asarray(vj), np.asarray(gj), vt.numpy(), gt.numpy()
+    vt, gt = vt.numpy(), gt.numpy()
     fin = np.isfinite(vj)
     assert np.array_equal(fin, np.isfinite(vt)), basis
     assert fin.sum() >= 8, basis
@@ -234,13 +256,60 @@ def test_basis_model_matches_jax(basis_models):
     assert np.max(err_g[fin]) <= GRAD_TOL, basis
 
 
-def test_absolute_visual_laplace_hessian_matches_jax(table):
+@contextlib.contextmanager
+def planted_fault(fault):
+    """Within the block the port's AbsoluteVisual propagation carries one
+    fault: "light_travel" solves every orbit at the observation epochs
+    (t_em = t), "rv" propagates the barycentre with no radial velocity,
+    "epoch_pairing" gives each chain its neighbour's emission epochs."""
+    plain = tav.propagate_astrometry
+
+    def propagate(elem, t):
+        if fault == "rv":
+            return plain(dataclasses.replace(elem, rv=torch.zeros_like(elem.rv)), t)
+        comp = plain(elem, t)
+        if fault == "light_travel":
+            t_em = torch.as_tensor(t, dtype=comp.t_em_days.dtype).expand_as(comp.t_em_days)
+        else:
+            t_em = comp.t_em_days.roll(1, dims=0)
+        return dataclasses.replace(comp, t_em_days=t_em)
+
+    tav.propagate_astrometry = propagate
+    try:
+        yield
+    finally:
+        tav.propagate_astrometry = plain
+
+
+def hold_against_jax(mt, pts, vj, gj, dv, dg):
+    """The port's ln_post and gradient at `pts` against the JAX package's
+    (`vj`, `gj`) by the comparison the card's paths use,
+    `chip_smoke.hold_values_and_gradients`, with the allowance for one ulp
+    of the propagated degrees (`dv`, `dg`)."""
+    vt, gt = mt.ln_post_and_grad(pts)
+    return chip_smoke.hold_values_and_gradients("port vs JAX", vt, gt, vj, gj, dv, dg)
+
+
+@pytest.mark.parametrize("fault", ["light_travel", "rv", "epoch_pairing"])
+def test_planted_absolute_visual_fault_fails_the_comparison(fault):
+    """The AbsoluteVisual relative-astrometry model (each chain with its
+    own parallax, proper motion and radial velocity, so each its own
+    emission epochs) passes the comparison, and fails it with each
+    planted fault."""
+    mj, mt = _models(chip_smoke.ABSOLUTE)
+    pts = mt.starting_points
+    vj, gj = jax_ln_post_and_grad(mj, pts)
+    dv, dg = chip_smoke.ulp_sensitivity(mt.ln_post_and_grad, pts)
+    hold_against_jax(mt, pts, vj, gj, dv, dg)
+    with planted_fault(fault), pytest.raises(AssertionError, match="disagree"):
+        hold_against_jax(mt, pts, vj, gj, dv, dg)
+
+
+def test_absolute_visual_laplace_hessian_matches_jax():
     """The Laplace step's `torch.func.hessian` runs through the composed
     AbsoluteVisual solve (`kepler_solver`'s jvp and vmap rules with a chain
     axis of 1) and matches `jax.hessian` of the JAX model."""
-    basis = chip_smoke.ABSOLUTE
-    mj = chip_smoke.build_basis_model(oc, basis, table)
-    mt = chip_smoke.build_basis_model(ot, basis, table, device="cpu")
+    mj, mt = _models(chip_smoke.ABSOLUTE)
     x = np.asarray(mj.link(mj.sample_priors(jax.random.PRNGKey(9))))
     H_t = torch.func.hessian(lambda th: mt.ln_post(th[None, :], fused=False)[0])(
         torch.as_tensor(x)).numpy()
