@@ -175,7 +175,46 @@ non-zero:
    HGCA fit's (4096, 192) in float32 and at (4096, 620) in float64. Each
    new path prints its launches, its microseconds per evaluation on the
    host clock and by CUDA events, and its device operations and device time
-   per evaluation.
+   per evaluation;
+23. the G23H composite likelihood (`examples/06_g23h_absolute_astrometry.py`
+   on its synthetic catalog row, DR2+DR3 scan law and IAD: 140 epochs,
+   marginalized epochs and the automatic variables, D = 98): one float64
+   value-and-gradient at 4096 points (half near a point, half prior draws)
+   on Visual{KepOrbit} and on AbsoluteVisual{KepOrbit}, held to the CPU
+   (on AbsoluteVisual within 1e-9 plus 16 ulp-moves, two of the draws
+   aligned with ln_post's gradient in the degrees), with the fused pair
+   once (Visual) or the Kepler kernel once (AbsoluteVisual) per
+   evaluation, and each evaluation's profile;
+24. the G23H injection-recovery fit (tests/test_g23h.py:381): the frozen
+   model on the catalog generated at a 40 Mjup companion with noise from
+   numpy's seed 5, float32, `octofit` with initialization at 4096 chains,
+   G23H_ADAPTATION + G23H_ITERATIONS; gates: the JAX test's (b_mass pull
+   under 5, relative error under 5%, split-R-hat under 1.1) and the fused
+   forward on every evaluation (the orbit is fixed: no backward);
+25. `examples/06` through `octofit_pigeons` with the variational leg and
+   the ChEES explorer, 512 walkers x (8 + 8) rungs, G23H_PT_ROUNDS rounds
+   of at most 64 leapfrog steps, float32; gates: finite draws and
+   evidence, swaps accepted between annealed rungs, the fused pair on
+   every evaluation and sweep; prints R-hat, the barriers and b_mass;
+26. the observable and stability priors with photometry: the two-planet
+   headline model (ObsPriorAstromONeil2019, NonCrossingPrior,
+   HillStabilityPrior, PlanetOrderPrior, a PhotometryObs through a
+   Sonora-format grid written to a temporary directory), one float64
+   value-and-gradient at 4096 points held to the CPU, the rows that break
+   each hard prior -inf with finite gradients; then the Kepler kernel at
+   the AbsoluteVisual evaluation's (4096, 140) in float64 and the fused
+   pair at (4096, 140) in both precisions, against their plain versions.
+
+Phases 1-7 run in this process alone. Then three jobs start, each in a
+process of its own on the same card (`_Workers`): 8 and 9; 14 and 15; the
+RV-GP fit of 18 and 19-22. Beside them this process runs 10-12, 16 and
+23-26. An evaluation keeps the card busy for under a fifth of its host
+time, so the processes' host dispatch overlaps; their fits' times are
+taken with the card shared. Once the jobs have ended, with the card to
+this process again: every kernel check and timing against a plain version
+that 9, 10, 12, 14, 18, 22 and 26 call for, 13, 17, and the checks of 18.
+A job that fails fails the script, with its log printed; the processes
+end with the script.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -209,6 +248,10 @@ kernel carries the launches of 19-22 (`bases_launches`, `hip_launches`,
 kernel its rows at the Hipparcos fit's shape (`hip_*`, float64) and at the
 other new paths' shapes (`absolute_shapes`), the fused pair its rows at the
 HGCA fit's shape (`hgca_*`) and at the DR4 evaluations' (`dr4_*`, float64);
+every kernel carries the launches of 23-26 (`g23h_launches` by basis,
+`g23h_fit_launches`, `g23h_pt_launches`, `obs_prior_launches`), the Kepler
+kernel and the fused pair their rows at (4096, 140) (`g23h_*`, float64; the
+pair also `g23h_f32_*`);
 the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -217,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -236,7 +280,7 @@ JOINT_SPAN = (47600.0, 58500.0)  # MJD: the Hipparcos window to the last RV
 # the headline and joint fits' adaptation and draws (the bench's 700 +
 # 3000), cut to keep the whole script inside its time limit
 CHAINS, ADAPTATION, ITERATIONS = 4096, 200, 100
-JOINT_ADAPTATION, JOINT_ITERATIONS = 200, 100
+JOINT_ADAPTATION, JOINT_ITERATIONS = 150, 75
 # NUTS and jittered HMC (`octofit(sampler="nuts" | "hmc")`) on the headline
 # model the ChEES phase initialized: every chain adapts its own step size
 # and dense metric, all chains step in lockstep
@@ -1023,7 +1067,7 @@ def _launches(kk, osk) -> dict:
 
 
 def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
-              init_kwargs=None, rhat_gate=True) -> dict:
+              init_kwargs=None, rhat_gate=True, orbit_fixed=False) -> dict:
     """`octofit` with initialization on `model` (`initialize` first with
     `init_kwargs` where given, e.g. a guess), with every launch count
     set to 0 just before and read just after, scored by the device
@@ -1032,7 +1076,8 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
     `rhat_gate`; otherwise printed by parameter), the
     standalone Kepler kernel launched (by the Laplace step) and, where a
     planet has a Kep or Visual orbit, the fused pair launched on every
-    batched gradient evaluation; a model without one solves its orbits
+    batched gradient evaluation (the forward alone where `orbit_fixed`:
+    no parameter reaches the orbit); a model without one solves its orbits
     with the standalone Kepler kernel, which must then run on every
     evaluation."""
     fused_pair = any(issubclass(p.basis, (ot.KepOrbit, ot.VisualOrbit))
@@ -1076,7 +1121,10 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
     log(f"  peak device memory of the run {peak_gib:.3f} GiB")
     if launches["kepler_solve"] == 0:
         raise AssertionError(f"{label}: the Laplace step never launched the standalone Kepler kernel")
-    if fused_pair and min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) < n_evals:
+    if orbit_fixed and launches["orbit_solve_bwd"]:
+        raise AssertionError(f"{label}: the fused backward ran for an orbit with no free parameter")
+    pair = ("orbit_solve_fwd",) if orbit_fixed else ("orbit_solve_fwd", "orbit_solve_bwd")
+    if fused_pair and min(launches[k] for k in pair) < n_evals:
         raise AssertionError(f"{label}: the fused orbit-solve kernels were launched fewer times "
                              f"than the {n_evals} gradient evaluations")
     if not fused_pair and launches["kepler_solve"] < n_evals:
@@ -1089,7 +1137,8 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
     if rhat_gate and not rhat_max < 1.05:
         raise AssertionError(f"{label}: max split-R-hat {rhat_max} >= 1.05")
     return {"launches": launches, "kepler_shapes": kepler_shapes, "model": model,
-            "chain": chain, "x": x, "n_evals": n_evals, "t_sampling": t_sampling}
+            "chain": chain, "x": x, "n_evals": n_evals, "t_sampling": t_sampling,
+            "t_init": t_init, "ess": ess, "rhat": rhat}
 
 
 def _gate_median(label, chain, name, truth) -> None:
@@ -2184,16 +2233,16 @@ def rvgp_laplace_phase(kk, model, theta) -> dict:
 
 
 def rvgp_phase(ot, kk, osk, adaptation=RVGP_ADAPTATION, iterations=RVGP_ITERATIONS,
-               checks=True) -> dict:
+               checks=True, fit=True, kepler_rows=True) -> dict:
     """The RV-GP path (`examples/03_rv_gp.py`). With `checks`: the float32
     GPU model checked against a float64 CPU model, one evaluation through
     the kernel pair and through the plain recursion, the Laplace step, the
-    kernel pair at its shapes, the associative and dense checks. Then
-    `octofit` with initialization at CHAINS chains through `fit_phase`
+    kernel pair at its shapes, the associative and dense checks. Then, with
+    `fit`, `octofit` with initialization at CHAINS chains through `fit_phase`
     (the standalone Kepler kernel on every evaluation) with the celerite
     pair launched on every gradient evaluation, the medians of b_mass and
-    b_a within 5 sd of the truth, and the Kepler kernel held to its twin at
-    every shape the fit launched it with (`kepler_rows`)."""
+    b_a within 5 sd of the truth, and, with `kepler_rows`, the Kepler kernel
+    held to its twin at every shape the fit launched it with (`kepler_rows`)."""
     from octofitter_tpu_torch.orbits import kepler as kepler_mod
     from octofitter_tpu_torch.rv import celerite as cel
     from octofitter_tpu_torch.rv import celerite_cuda as cc
@@ -2217,19 +2266,23 @@ def rvgp_phase(ot, kk, osk, adaptation=RVGP_ADAPTATION, iterations=RVGP_ITERATIO
             t_step = time.perf_counter()
             checked[key] = step()
             log(f"rv-gp {key} step: {time.perf_counter() - t_step:.2f} s")
-    res = fit_phase(ot, kk, osk, model, f"rv-gp fit (celerite SHO, {adaptation} + {iterations})",
-                    CHAINS, adaptation, iterations)
-    launches, n_evals = res["launches"], res["n_evals"]
-    res["celerite_shapes"] = dict(cc.launch_shapes)
-    log(f"  celerite forward by (rows, epochs, terms): {res['celerite_shapes']}")
-    if min(launches["celerite_fwd"], launches["celerite_bwd"]) < n_evals:
-        raise AssertionError(f"rv-gp: the celerite kernels were launched fewer times than the "
-                             f"{n_evals} gradient evaluations")
-    _gate_median("rv-gp", res["chain"], "b_mass", RVGP_MASS)
-    _gate_median("rv-gp", res["chain"], "b_a", RVGP_TRUE["a"])
-    t_step = time.perf_counter()
-    res["kepler_rows"] = kepler_path_phase(kk, kepler_mod, res["kepler_shapes"])
-    log(f"rv-gp Kepler step: {time.perf_counter() - t_step:.2f} s")
+    res = {}
+    if fit:
+        res = fit_phase(ot, kk, osk, model,
+                        f"rv-gp fit (celerite SHO, {adaptation} + {iterations})",
+                        CHAINS, adaptation, iterations)
+        launches, n_evals = res["launches"], res["n_evals"]
+        res["celerite_shapes"] = dict(cc.launch_shapes)
+        log(f"  celerite forward by (rows, epochs, terms): {res['celerite_shapes']}")
+        if min(launches["celerite_fwd"], launches["celerite_bwd"]) < n_evals:
+            raise AssertionError(f"rv-gp: the celerite kernels were launched fewer times than "
+                                 f"the {n_evals} gradient evaluations")
+        _gate_median("rv-gp", res["chain"], "b_mass", RVGP_MASS)
+        _gate_median("rv-gp", res["chain"], "b_a", RVGP_TRUE["a"])
+        if kepler_rows:
+            t_step = time.perf_counter()
+            res["kepler_rows"] = kepler_path_phase(kk, kepler_mod, res["kepler_shapes"])
+            log(f"rv-gp Kepler step: {time.perf_counter() - t_step:.2f} s")
     res.update(checked)
     res["seconds"] = time.perf_counter() - t0
     log(f"rv-gp phase: {res['seconds']:.2f} s")
@@ -2273,7 +2326,7 @@ HIP_ASTROM = dict(
 # 30 + 30, its R-hat reported, not gated, beside the JAX package's at the
 # same initialization and 300 + 150 (`scripts/hip_mass_mixing.py`)
 HIP_LINE_ADAPTATION, HIP_LINE_ITERATIONS = 150, 75
-HIP_ADAPTATION, HIP_ITERATIONS = 30, 30
+HIP_ADAPTATION, HIP_ITERATIONS = 20, 20
 # the HGCA linear-fit fit (tests/test_astrom.py:300-337, include_iad=True):
 # the headline's orbit and 12 relative-astrometry epochs with a 30 Mjup
 # companion; its catalog row made by `generate_from_params` at the truth
@@ -2485,6 +2538,9 @@ HIP_GUESS = dict(plx=HIP_SOL["plx"], pmra=HIP_SOL["pm_ra"], pmdec=HIP_SOL["pm_de
 # not the default 1000 (most of an initialization's time: each is one
 # evaluation at 512 starts)
 INIT_OPT_STEPS = 300
+# the Hipparcos mass fit, which does not mix at the smoke's length either
+# way, runs HIP_MASS_OPT_STEPS (most of its initialization's time)
+HIP_MASS_OPT_STEPS = 100
 
 
 def _hgca_row_template() -> dict:
@@ -2613,21 +2669,280 @@ def dr4_data(ot) -> dict:
     return dict(ot.generate_from_params(model, truth).observations[0].table)
 
 
+# The G23H composite fit (`examples/06_g23h_absolute_astrometry.py` and the
+# JAX package's tests/test_g23h.py): the synthetic catalog row and DR2+DR3
+# GOST scan law of those tests (the real HIP 384 row is not in the
+# repository), the IAD of tests/test_astrom.py (30 orbits x 2 abscissae)
+# and G23H_TRANSITS Gaia scans: 140 epochs in all
+G23H_TRANSITS = 80
+# examples/06's Gaia solution when it runs on the synthetic row
+G23H_EXAMPLE_SOL = dict(ra=158.3, dec=-40.4, parallax=50.0, pmra=0.0, pmdec=0.0,
+                        ra_error=0.03, dec_error=0.03, parallax_error=0.05, pmra_error=0.03,
+                        pmdec_error=0.03)
+# tests/test_g23h.py:381's injection: a 40 Mjup companion on its fixed
+# orbit, the catalog made with noise from numpy's seed 5; every other
+# parameter 0
+G23H_INJECTION = {"b_mass": 40.0, "pmra": -3.0, "pmdec": 7.0, "G23H_σ_AL": 0.132,
+                  "G23H_σ_att": 0.0779, "G23H_σ_calib": 0.0795, "G23H_hip_iad_jitter": 0.5,
+                  "G23H_σ_rv_per_transit": 0.4}
+G23H_NOISE_SEED = 5
+# examples/06's model has no truth (its catalog row is all zeros): its
+# points near "the truth" are near this one, a 20 Mjup companion at 5 AU
+G23H_EXAMPLE_POINT = {"M": 1.0, "plx": 50.0, "pmra": 0.0, "pmdec": 0.0, "b_a": 5.0,
+                      "b_i": 0.6, "b_omegax": 0.6, "b_omegay": 0.8, "b_Omegax": -0.8,
+                      "b_Omegay": 0.6, "b_tp": 50000.0, "b_mass": 20.0,
+                      "G23H_hip_iad_jitter": 0.5}
+
+
+def synth_gost_dr23(directory, n=G23H_TRANSITS):
+    """tests/test_g23h.py:synth_gost_dr23's GOST forecast of `n` Gaia
+    transits spanning the DR2 and DR3 AGIS windows, as
+    `directory`/gost_dr23.csv."""
+    from octofitter_tpu_torch.astrom.scanlaw import GAIA_AGIS_SPAN_DR2, GAIA_AGIS_SPAN_DR3
+    from octofitter_tpu_torch.constants import mjd2jd
+
+    rng = np.random.default_rng(2)
+    mjd = np.sort(rng.uniform(GAIA_AGIS_SPAN_DR2["start_mjd"] + 5,
+                              GAIA_AGIS_SPAN_DR3["stop_mjd"] - 5, n))
+    jd = mjd2jd(mjd)
+    angle = rng.uniform(-np.pi, np.pi, n)
+    parf = rng.uniform(-0.7, 0.7, n)
+    path = str(Path(directory) / "gost_dr23.csv")
+    with open(path, "w") as f:
+        f.write("Target, scanAngle[rad], parallaxFactorAlongScan,"
+                " ObservationTimeAtBarycentre[BarycentricJulianDateInTCB]\n")
+        for i in range(n):
+            f.write(f"t,{angle[i]},{parf[i]},{jd[i]}\n")
+    return path
+
+
+def g23h_catalog_row() -> dict:
+    """tests/test_g23h.py:g23h_catalog_row, the synthetic G23H catalog row
+    (examples/06 reads it when the real one is absent)."""
+    return dict(
+        pmra_hip=0.0, pmdec_hip=0.0, pmra_hip_error=0.5, pmdec_hip_error=0.5,
+        pmra_pmdec_hip=0.1,
+        pmra_hg=0.0, pmdec_hg=0.0, pmra_hg_error=0.03, pmdec_hg_error=0.03,
+        pmra_pmdec_hg=0.0,
+        pmra_dr2=0.0, pmdec_dr2=0.0, pmra_dr2_error=0.06, pmdec_dr2_error=0.06,
+        pmra_pmdec_dr2=-0.1,
+        pmra_dr32=0.0, pmdec_dr32=0.0, pmra_dr32_error=0.05, pmdec_dr32_error=0.05,
+        pmra_pmdec_dr32=0.0,
+        pmra_dr3=0.0, pmdec_dr3=0.0, pmra_dr3_error=0.03, pmdec_dr3_error=0.03,
+        pmra_pmdec_dr3=-0.2,
+        epoch_ra_hip=1991.25, epoch_dec_hip=1991.25,
+        epoch_ra_dr2_mjd=57205.875, epoch_dec_dr2_mjd=57205.875,
+        epoch_ra_dr3_mjd=57388.5, epoch_dec_dr3_mjd=57388.5,
+        nonlinear_dpmra=0.0, nonlinear_dpmdec=0.0,
+        astrometric_chi2_al_dr3=500.0,
+        astrometric_n_good_obs_al_dr3=400,
+        astrometric_matched_transits_dr3=50,
+        astrometric_params_solved_dr3=31,
+        ruwe_dr3=1.05,
+        rho_dr2_dr3=0.3,
+        radial_velocity_error=0.5,
+        rv_nb_transits=10,
+    )
+
+
+def g23h_catalog_row_full() -> dict:
+    """tests/test_g23h.py:g23h_catalog_row_full: the row with the sidecar
+    fields the automatic variables use (a bright star, so the DR2
+    duplicate count is marginalized; the UEVA calibration priors; the
+    central-epoch position covariances; the RV uncertainty prior)."""
+    row = g23h_catalog_row()
+    row.update(
+        astrometric_matched_observations_dr2=30,
+        phot_g_mean_mag_dr3=5.5,
+        sig_AL=0.132, sig_AL_sigma=0.01,
+        sig_att_radec=0.0779, sig_att_radec_sigma=0.01,
+        sig_cal=0.0795, sig_cal_sigma=0.01,
+        ra_error_central_dr3=0.02, dec_error_central_dr3=0.02,
+        ra_dec_corr_central_dr3=0.1,
+        ra_error_central_dr2=0.04, dec_error_central_dr2=0.04,
+        ra_dec_corr_central_dr2=-0.05,
+        rv_ln_uncert_dr3=-1.0, rv_ln_uncert_err_dr3=0.2,
+    )
+    return row
+
+
+def g23h_data(directory) -> dict:
+    """The G23H paths' files, written into `directory`: the IAD of
+    tests/test_g23h.py (30 orbits x 2 abscissae, residuals N(0, 1.5)) and
+    the DR2+DR3 GOST scan law."""
+    return {"iad_file": write_synth_iad(str(Path(directory) / "g23h_iad.d"), res_sigma=1.5),
+            "gost_file": synth_gost_dr23(directory)}
+
+
+def build_g23h_example_model(pkg, data, basis="Visual{KepOrbit}", **model_kw):
+    """examples/06's model with either package: `G23HObs` with its
+    automatic variables (one priority per Gaia scan, marginalized epoch
+    selection, the IAD nuisances; D = 98) on the synthetic row, a planet of
+    free orbit and mass. On AbsoluteVisual{KepOrbit} the barycentre sits at
+    the example's Gaia position at the DR3 epoch, with no radial velocity."""
+    d = pkg.distributions
+    hip = pkg.HipparcosIADObs(iad_file=data["iad_file"])
+    gaia = pkg.GaiaCatalogFitObs(gaia_sol=G23H_EXAMPLE_SOL, scanlaw=data["gost_file"])
+    g23h = pkg.G23HObs(catalog=g23h_catalog_row(), gaia_like=gaia, hip_like=hip)
+    sol = G23H_EXAMPLE_SOL
+    b = pkg.Planet(name="b", basis=basis, variables=dict(
+        a=d.LogUniform(0.1, 50.0), e=0.05, i=d.Sine(), omega=pkg.UniformCircular(),
+        Omega=pkg.UniformCircular(), tp=d.Uniform(40000.0, 60000.0),
+        mass=d.LogUniform(1.0, 3000.0)))
+    sys_vars = dict(M=d.truncated(d.Normal(1.0, 0.1), lower=0.1),
+                    plx=d.truncated(d.Normal(sol["parallax"], 2.0), lower=0.1),
+                    pmra=d.Normal(sol["pmra"], 20.0), pmdec=d.Normal(sol["pmdec"], 20.0))
+    if basis == ABSOLUTE:
+        sys_vars.update(ra=sol["ra"], dec=sol["dec"], rv=0.0, ref_epoch=57388.5)
+    system = pkg.System(name="G23H_example", variables=sys_vars, companions=[b],
+                        observations=[g23h])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def build_g23h_model(pkg, data, basis="Visual{KepOrbit}", *, freeze=True, ueva_mode="RUWE",
+                     include_rv=True, row=None, variables=None, **model_kw):
+    """tests/test_g23h.py:g23h_model_marg's model with either package:
+    `G23HObs` with its automatic variables on the full synthetic row (or
+    `row`), frozen (`freeze`: the selection drawn once, D = 13) or
+    marginalized epochs, a planet of fixed orbit and free mass; with
+    `variables` (a function of the package), those instead, and no epoch
+    selection (tests/test_g23h.py:g23h_model). On
+    AbsoluteVisual{KepOrbit} the barycentre sits at GAIA_SOL's position at
+    the DR3 epoch, with no radial velocity."""
+    d = pkg.distributions
+    hip = pkg.HipparcosIADObs(iad_file=data["iad_file"])
+    gaia = pkg.GaiaCatalogFitObs(gaia_sol=GAIA_SOL, scanlaw=data["gost_file"])
+    g23h = pkg.G23HObs(catalog=g23h_catalog_row_full() if row is None else row, gaia_like=gaia,
+                       hip_like=hip, freeze_epochs=freeze, ueva_mode=ueva_mode,
+                       include_rv=include_rv,
+                       variables=None if variables is None else variables(pkg))
+    b = pkg.Planet(name="b", basis=basis, variables=dict(
+        a=6.0, e=0.1, i=0.6, omega=1.0, Omega=2.0, tp=50000.0, mass=d.Uniform(0.0, 100.0)))
+    sys_vars = dict(M=1.1, plx=50.0, pmra=d.Normal(0.0, 100.0), pmdec=d.Normal(0.0, 100.0))
+    if basis == ABSOLUTE:
+        sys_vars.update(ra=GAIA_SOL["ra"], dec=GAIA_SOL["dec"], rv=0.0, ref_epoch=57388.5)
+    system = pkg.System(name="g23hmarg", variables=sys_vars, companions=[b],
+                        observations=[g23h])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def g23h_injection_truth(model) -> list:
+    """The injection's natural-space point in `model`'s parameter order."""
+    return [G23H_INJECTION.get(n, 0.0) for n in model.parameter_names]
+
+
+def g23h_injected_row(ot, data) -> dict:
+    """The injection's catalog row: the frozen-epoch model's
+    `generate_from_params` at G23H_INJECTION with noise from numpy's seed
+    G23H_NOISE_SEED, made by the port on the CPU in float64."""
+    model = build_g23h_model(ot, data, device="cpu")
+    truth = model.arr2nt(model.tensor(g23h_injection_truth(model)))
+    system = ot.generate_from_params(model, truth, add_noise=True,
+                                     rng=np.random.default_rng(G23H_NOISE_SEED))
+    return dict(system.observations[0].catalog)
+
+
+def g23h_example_point(model, seed=0) -> list:
+    """G23H_EXAMPLE_POINT in `model`'s parameter order, the priorities drawn
+    N(0, 1) from numpy's `seed`, the IAD nuisances 0."""
+    rng = np.random.default_rng(seed)
+    return [G23H_EXAMPLE_POINT.get(n, rng.standard_normal() if "priorities" in n else 0.0)
+            for n in model.parameter_names]
+
+
+# Observable and stability priors with photometry: the headline planet b
+# and an outer companion c, b's relative astrometry wrapped in
+# ObsPriorAstromONeil2019, NonCrossingPrior, HillStabilityPrior and
+# PlanetOrderPrior on the system, and c's J magnitude through a Sonora
+# Bobcat-format grid (D = 22). The natural points: one valid, then one that
+# breaks each hard prior alone where it can (crossing orbits; c inside b,
+# which also fails the Hill criterion; Hill-unstable masses)
+SONORA_BAND = "MKO_J"
+OBS_PRIOR_PHOT = dict(phot=np.array([15.6, 15.45]), σ_phot=np.array([0.1, 0.15]))
+OBS_PRIOR_POINT = {"M": TRUE["M"], "plx": TRUE["plx"], "b_a": TRUE["a"], "b_e": TRUE["e"],
+                   "b_i": TRUE["i"], "b_omegax": math.cos(TRUE["omega"]),
+                   "b_omegay": math.sin(TRUE["omega"]), "b_Omegax": math.cos(TRUE["Omega"]),
+                   "b_Omegay": math.sin(TRUE["Omega"]), "b_mass": 5.0, "c_a": 25.0, "c_e": 0.1, "c_i": 0.7, "c_omegax": 0.8,
+                   "c_omegay": 0.6, "c_Omegax": 0.0, "c_Omegay": 1.0, "c_tp": 55000.0,
+                   "c_mass": 10.0, "c_teff": 800.0}
+OBS_PRIOR_VIOLATIONS = {"crossing": {"c_a": 9.0, "c_e": 0.3},
+                        "order": {"c_a": 5.0, "c_e": 0.0},
+                        "hill": {"c_a": 11.0, "c_e": 0.0, "b_mass": 60.0, "c_mass": 60.0}}
+
+
+def write_sonora_grid(directory) -> str:
+    """A photometry table in the Sonora Bobcat `mag_table` layout (the six
+    physical columns, then 25 bands), as `directory`/mag_table+0.0: Teff
+    200-2400 K x mass 0.5-80 Mjup on a 12 x 10 grid, each band's absolute
+    magnitude a smooth made-up function of both."""
+    teff = np.linspace(200.0, 2400.0, 12)
+    mass = np.linspace(0.5, 80.0, 10)
+    lines = ["# Teff logg mass R Y logKzz and 25 bands (made-up values)"]
+    for t in teff:
+        for m in mass:
+            bands = [20.0 - 7.5 * np.log10(t / 200.0) - 0.01 * m + 0.05 * k + 0.1 * np.sin(t / 300.0)
+                     for k in range(25)]
+            row = [t, 4.0 + 0.01 * m, m, 0.1, 0.27, 2.0] + bands
+            lines.append(" ".join(f"{v:.5f}" for v in row))
+    path = str(Path(directory) / "mag_table+0.0")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def build_obs_prior_model(pkg, table, sonora_file, **model_kw):
+    """The two-planet headline model with the observable and stability priors
+    and photometry (D = 22), with either package."""
+    d = pkg.distributions
+    mag = pkg.sonora_photometry_interpolator(SONORA_BAND, sonora_file)
+    astrom = pkg.ObsPriorAstromONeil2019(pkg.PlanetRelAstromObs(table, name="simdata"))
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}", observations=[astrom],
+                   variables=dict(_headline_planet_variables(pkg), mass=d.Uniform(0.5, 80.0)))
+    c = pkg.Planet(name="c", basis="Visual{KepOrbit}",
+                   observations=[pkg.PhotometryObs(OBS_PRIOR_PHOT, name="photometry")],
+                   variables=dict(a=d.Uniform(3.0, 60.0), e=d.Uniform(0.0, 0.5), i=d.Sine(),
+                                  omega=pkg.UniformCircular(), Omega=pkg.UniformCircular(),
+                                  tp=d.Uniform(50000.0, 60000.0), mass=d.Uniform(0.5, 80.0),
+                                  teff=d.Uniform(300.0, 2000.0),
+                                  flux=lambda sys, pl: mag(pl.teff, pl.mass)))
+    system = pkg.System(name="obs_priors", variables=_headline_system_variables(pkg),
+                        companions=[b, c],
+                        observations=[pkg.NonCrossingPrior(), pkg.HillStabilityPrior(),
+                                      pkg.PlanetOrderPrior("b", "c")])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def obs_prior_points(model):
+    """OBS_PRIOR_POINT (b at the headline's truth, its position angle at MJD
+    57000 as theta) and each of OBS_PRIOR_VIOLATIONS, in `model`'s
+    parameter order: (4, D), natural space."""
+    theta, _ = _headline_state()
+    point = dict(OBS_PRIOR_POINT, b_thetax=math.cos(theta), b_thetay=math.sin(theta))
+    rows = [point] + [dict(point, **v) for v in OBS_PRIOR_VIOLATIONS.values()]
+    return np.array([[r[n] for n in model.parameter_names] for r in rows])
+
+
 @contextlib.contextmanager
-def degrees_one_ulp_off(seed=0):
+def degrees_one_ulp_off(seed=0, signs=None):
     """Within the block every propagated ra2 and dec2 of an AbsoluteVisual
     orbit (`orbits/absolute_visual.py:_deg`, which the block replaces) moves
     one ulp: all up for seed 0, all down for seed 1 (an arcsin or atan2 that
     rounds one argument apart does so at every epoch where the barycentre
-    stands still), up or down at random from `seed` above."""
+    stands still), up or down at random from `seed` above; or, given
+    `signs` (one tensor per call of `_deg` in an evaluation, in call
+    order), up where the sign is positive and down elsewhere."""
     from octofitter_tpu_torch.orbits import absolute_visual
 
     plain = absolute_visual._deg
     gen = torch.Generator().manual_seed(seed)
+    calls = []
 
     def nudged(x):
         y = plain(x)
-        if seed < 2:
+        if signs is not None:
+            up = (signs[len(calls) % len(signs)] > 0).to(y.device)
+            calls.append(None)
+        elif seed < 2:
             up = torch.full(y.shape, seed == 0, device=y.device)
         else:
             up = (torch.rand(y.shape, generator=gen, dtype=torch.float64) < 0.5).to(y.device)
@@ -2641,15 +2956,52 @@ def degrees_one_ulp_off(seed=0):
         absolute_visual._deg = plain
 
 
-def ulp_sensitivity(fn, theta):
+def degrees_gradient_signs(ln_post, theta) -> list:
+    """The sign of d ln_post / d(each propagated ra2 and dec2), summed over
+    the rows of `theta`: one tensor per call of `_deg` in an evaluation, in
+    call order (empty where no orbit is AbsoluteVisual{KepOrbit})."""
+    from octofitter_tpu_torch.orbits import absolute_visual
+
+    plain = absolute_visual._deg
+    taps = []
+
+    def tapped(x):
+        y = plain(x)
+        taps.append(torch.zeros_like(y, requires_grad=True))
+        return y + taps[-1]
+
+    absolute_visual._deg = tapped
+    try:
+        lp = ln_post(theta)
+    finally:
+        absolute_visual._deg = plain
+    if not taps:
+        return []
+    lp = torch.where(torch.isfinite(lp), lp, 0.0)
+    grads = torch.autograd.grad(lp.sum(), taps, allow_unused=True)
+    return [torch.sign(g).detach().cpu() if g is not None else torch.zeros(t.shape)
+            for g, t in zip(grads, taps)]
+
+
+def ulp_sensitivity(fn, theta, ln_post=None):
     """How far `fn(theta)` = (values (C,), gradients (C, D)) move when the
     propagated degrees move by one ulp (`degrees_one_ulp_off`, ULP_SEEDS
     draws): per chain, the most |d value| and the most of the largest
-    |d gradient|; zero where no planet is on AbsoluteVisual{KepOrbit}."""
+    |d gradient|; zero where no planet is on AbsoluteVisual{KepOrbit}. With
+    `ln_post` (the same model's), two more draws move every value an ulp
+    the way that raises ln_post, and the other way (`degrees_gradient_signs`):
+    the worst case to first order, where a likelihood that takes
+    differences of propagated positions (G23H's release epochs) sees
+    nothing of the draws that move all of them together."""
     lp, g = fn(theta)
     dv = dg = torch.zeros_like(lp)
-    for seed in range(ULP_SEEDS):
-        with degrees_one_ulp_off(seed):
+    draws = [dict(seed=seed) for seed in range(ULP_SEEDS)]
+    if ln_post is not None:
+        signs = degrees_gradient_signs(ln_post, theta)
+        if signs:
+            draws += [dict(signs=signs), dict(signs=[-s for s in signs])]
+    for draw in draws:
+        with degrees_one_ulp_off(**draw):
             lp2, g2 = fn(theta)
         fin = torch.isfinite(lp) & torch.isfinite(lp2)
         dv = torch.maximum(dv, torch.where(fin, (lp2 - lp).abs(), 0.0))
@@ -2697,13 +3049,14 @@ def evaluation_profile(label, model, theta) -> dict:
     return {"us": host_ms * 1e3, "device_us": dev_ms * 1e3, "ops": ops, "busy_us": busy}
 
 
-def _card_evaluation(label, kk, osk, model, ref, theta) -> dict:
+def _card_evaluation(label, kk, osk, model, ref, theta, aligned_ulps=False) -> dict:
     """`model` (on the card) and `ref` (the CPU) at the unconstrained
     points `theta` (a CPU tensor), compared (`hold_values_and_gradients`,
-    with the CPU model's `ulp_sensitivity`); the card's launches of the one
-    evaluation and its profile."""
+    with the CPU model's `ulp_sensitivity`, its two sign-aligned draws too
+    where `aligned_ulps`); the card's launches of the one evaluation and
+    its profile."""
     lp_ref, g_ref = ref.ln_post_and_grad(theta)
-    dv, dg = ulp_sensitivity(ref.ln_post_and_grad, theta)
+    dv, dg = ulp_sensitivity(ref.ln_post_and_grad, theta, ref.ln_post if aligned_ulps else None)
     _reset_launches(kk, osk)
     lp, g = model.ln_post_and_grad(theta.to("cuda"))
     torch.cuda.synchronize()
@@ -2713,7 +3066,8 @@ def _card_evaluation(label, kk, osk, model, ref, theta) -> dict:
                                      g_ref, dv, dg)
     log(f"  {label}: launches of one evaluation {launches}; kepler_solve by shape {shapes}")
     prof = evaluation_profile(label, model, theta.to("cuda"))
-    return {"launches": launches, "kepler_shapes": shapes, "errs": errs, "profile": prof}
+    return {"launches": launches, "kepler_shapes": shapes, "errs": errs, "profile": prof,
+            "lp": lp.cpu(), "g": g.cpu()}
 
 
 def bases_phase(ot, kk, osk) -> dict:
@@ -2786,7 +3140,7 @@ def hip_path_phase(ot, kk, osk, directory) -> dict:
     ref = build_hip_mass_model(ot, data, torch, device="cpu")
     res = fit_phase(ot, kk, osk, model, f"hipparcos mass fit ({HIP_ADAPTATION} + "
                     f"{HIP_ITERATIONS})", CHAINS, HIP_ADAPTATION, HIP_ITERATIONS,
-                    init_kwargs={"guess": HIP_GUESS, "n_opt_steps": INIT_OPT_STEPS},
+                    init_kwargs={"guess": HIP_GUESS, "n_opt_steps": HIP_MASS_OPT_STEPS},
                     rhat_gate=False)
     _catalog_test("hipparcos mass fit", res["chain"], hip_sol)
     mass = np.asarray(res["chain"]["b_mass"]).ravel()
@@ -2823,7 +3177,7 @@ def _points_near(model, nat, n, seed):
     """`n` unconstrained points of `model`: the natural-space `nat` plus
     N(0, 1e-3) in every coordinate (CPU, float64)."""
     rng = np.random.default_rng(seed)
-    base = model.link(model.tensor([nat])).cpu().double()
+    base = model.link(model.tensor(np.asarray([nat]))).cpu().double()
     return base + torch.as_tensor(1e-3 * rng.standard_normal((n, model.D)))
 
 
@@ -2936,25 +3290,36 @@ HGCA_SPAN = (47600.0, 59500.0)  # MJD: the Hipparcos mission to the last astrome
 DR4_SPAN = (57000.0, 58500.0)
 
 
-def absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod) -> dict:
+def absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod, kernel_steps=True) -> dict:
     """The orbit bases, the Hipparcos, HGCA linear-fit and Gaia DR4 paths
-    (their data in a temporary directory), then the standalone Kepler
-    kernel held to its twin at every shape they launched it with, and the
-    fused pair against its plain versions at the HGCA fit's (CHAINS, 192)
-    in float32 and the DR4 evaluations' (CHAINS, DR4_EPOCHS) in float64."""
+    (their data in a temporary directory), then, with `kernel_steps`,
+    `absolute_kernel_step`."""
     import tempfile
 
     t0 = time.perf_counter()
     res = {"bases": bases_phase(ot, kk, osk)}
     with tempfile.TemporaryDirectory() as directory:
         res["hip"] = hip_path_phase(ot, kk, osk, directory)
-        t_step = time.perf_counter()
-        res["hip_kepler"] = kepler_path_phase(kk, kepler_mod, res["hip"]["kepler_shapes"],
-                                              (torch.float64,))
-        log(f"hipparcos Kepler step: {time.perf_counter() - t_step:.2f} s")
         res["hgca"] = hgca_path_phase(ot, kk, osk, directory)
     res["dr4"] = dr4_path_phase(ot, kk, osk)
+    res["hip"]["n_epochs"] = res["hip"]["model"].n_epochs
+    res["hgca"]["n_epochs"] = res["hgca"]["model"].n_epochs
+    if kernel_steps:
+        absolute_kernel_step(kk, osk, elements, kepler_mod, res)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"absolute-astrometry phases: {res['seconds']:.2f} s")
+    return res
+
+
+def absolute_kernel_step(kk, osk, elements, kepler_mod, res) -> None:
+    """The standalone Kepler kernel held to its twin (float64) at every
+    shape the absolute-astrometry paths of `res` launched it with, and the
+    fused pair against its plain versions at the HGCA fit's (CHAINS, 192)
+    in float32 and the DR4 evaluations' (CHAINS, DR4_EPOCHS) in float64;
+    the rows go into `res`."""
     t_step = time.perf_counter()
+    res["hip_kepler"] = kepler_path_phase(kk, kepler_mod, res["hip"]["kepler_shapes"],
+                                          (torch.float64,))
     shapes = {}
     for out in (*res["bases"]["runs"].values(), res["hgca"]["absolute"],
                 *res["dr4"]["runs"].values()):
@@ -2962,7 +3327,7 @@ def absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod) -> dict:
             shapes[shape] = shapes.get(shape, 0) + count
     res["other_kepler_shapes"] = shapes
     res["other_kepler"] = kepler_path_phase(kk, kepler_mod, shapes, (torch.float64,))
-    hgca_epochs = res["hgca"]["model"].n_epochs
+    hgca_epochs = res["hgca"]["n_epochs"]
     res["hgca_shape"] = f"({CHAINS}, {hgca_epochs})"
     res["dr4_shape"] = f"({CHAINS}, {DR4_EPOCHS})"
     res["pair"] = orbit_shapes_phase(
@@ -2974,9 +3339,6 @@ def absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod) -> dict:
     for part in ("fwd", "bwd"):
         res["pair"][part].update(pair64[part])
     log(f"absolute-astrometry kernel step: {time.perf_counter() - t_step:.2f} s")
-    res["seconds"] = time.perf_counter() - t0
-    log(f"absolute-astrometry phases: {res['seconds']:.2f} s")
-    return res
 
 
 def absolute_kernel_keys(kernels, res) -> None:
@@ -3000,7 +3362,7 @@ def absolute_kernel_keys(kernels, res) -> None:
                              for (b, d), out in dr4.items()}
         if name == "kepler_solve":
             # the shape of every evaluation of the mass fit
-            hip_shape = (CHAINS, res["hip"]["model"].n_epochs)
+            hip_shape = (CHAINS, res["hip"]["n_epochs"])
             row = res["hip_kepler"][(hip_shape, f64)]
             bnd = bound_ms(24 * row["n"], OPS_KEPLER * row["n"], f64)
             k.update({"hip_shape": str(hip_shape), "hip_dtype": "float64",
@@ -3021,7 +3383,7 @@ def absolute_kernel_keys(kernels, res) -> None:
         elif name.startswith("orbit_solve"):
             part = name.removeprefix("orbit_solve_")
             for key, shape, dtype, b, t in (
-                    ("hgca", res["hgca_shape"], f32, CHAINS, res["hgca"]["model"].n_epochs),
+                    ("hgca", res["hgca_shape"], f32, CHAINS, res["hgca"]["n_epochs"]),
                     ("dr4", res["dr4_shape"], f64, CHAINS, DR4_EPOCHS)):
                 row = res["pair"][part][(shape, dtype)]
                 words = (8 * b + t + 14 * b * t if part == "fwd"
@@ -3034,7 +3396,427 @@ def absolute_kernel_keys(kernels, res) -> None:
                           f"{key}_bound_by": bnd[1]})
 
 
+# The G23H composite fit (`astrom/g23h.py`) and the observable priors with
+# photometry (`likelihoods/obs_priors.py`, `likelihoods/photometry.py`,
+# `atmosphere.py`). G23H_SPAN: the Hipparcos abscissae to the last Gaia
+# scan (MJD), for the kernels' inputs at the G23H models' 140 epochs
+G23H_SPAN = (47600.0, 59700.0)
+# the injection fit passes the JAX test's gates at 100 + 50 (b_mass R-hat
+# 1.0508 against 1.1; 1.033 at 150 + 75, on NVIDIA H100 machines); both
+# G23H fits initialize with G23H_OPT_STEPS multistart Adam steps
+G23H_ADAPTATION, G23H_ITERATIONS = 100, 50
+G23H_OPT_STEPS = 100
+# examples/06 through `octofit_pigeons` (its variational leg and ChEES
+# explorer) at 512 walkers x (8 + 8) rungs, 8,192 rows per evaluation, and
+# G23H_PT_ROUNDS rounds of at most 64 leapfrog steps (the example's 7 at 256
+# would take many minutes)
+G23H_PT_KWARGS = dict(n_chains=8, n_chains_variational=8, n_walkers=512, explorer="chees",
+                      explorer_n_leapfrog=64)
+G23H_PT_ROUNDS = 3
+
+
+def g23h_evaluation_phase(ot, kk, osk, data) -> dict:
+    """examples/06's model (marginalized epochs and the automatic variables,
+    D = 98, 140 epochs) in float64 at CHAINS points, half near
+    G23H_EXAMPLE_POINT and half prior draws, on Visual{KepOrbit} and
+    AbsoluteVisual{KepOrbit}: the card held to the CPU (`_card_evaluation`:
+    1e-9 relative plus 16 ulp-moves of the propagated degrees), with its
+    launches and its profile. Gates: on Visual the fused pair once each way
+    and no Kepler kernel; on AbsoluteVisual the Kepler kernel once (every
+    chain's emission epochs) and no fused pair, the barycentre's nine
+    release epochs being a propagation that solves no Kepler equation."""
+    t0 = time.perf_counter()
+    res = {}
+    for basis in ("Visual{KepOrbit}", ABSOLUTE):
+        model = build_g23h_example_model(ot, data, basis, device="cuda", dtype=torch.float64)
+        ref = build_g23h_example_model(ot, data, basis, device="cpu", dtype=torch.float64)
+        half = CHAINS // 2
+        theta = torch.cat([_points_near(ref, g23h_example_point(ref), half, seed=13),
+                           ref.link(ref.sample_priors(torch.Generator().manual_seed(14),
+                                                      CHAINS - half))])
+        out = _card_evaluation(f"g23h {basis}", kk, osk, model, ref, theta, aligned_ulps=True)
+        expected = ({"kepler_solve": 1, "orbit_solve_fwd": 0, "orbit_solve_bwd": 0}
+                    if basis == ABSOLUTE else
+                    {"kepler_solve": 0, "orbit_solve_fwd": 1, "orbit_solve_bwd": 1})
+        if any(out["launches"][k] != v for k, v in expected.items()):
+            raise AssertionError(f"g23h {basis}: launches {out['launches']}, expected {expected}")
+        out["n_epochs"] = model.n_epochs
+        res[basis] = out
+    res["seconds"] = time.perf_counter() - t0
+    log(f"g23h evaluation phase: {res['seconds']:.2f} s")
+    return res
+
+
+def g23h_injection_phase(ot, kk, osk, data) -> dict:
+    """tests/test_g23h.py:381's injection-recovery fit: the frozen-epoch model
+    (D = 13) on the catalog that the port generates at the injected 40 Mjup
+    companion with noise from numpy's seed 5 (`g23h_injected_row`, the CPU in
+    float64), the float32 card model checked against a float64 CPU model,
+    then `octofit` with initialization at CHAINS chains, ChEES,
+    G23H_ADAPTATION + G23H_ITERATIONS, with the gates of `fit_phase` (the
+    fused forward on every gradient evaluation, and no backward: the orbit
+    is fixed) but R-hat's, and the JAX test's own: the pull of b_mass under 5, its relative error under 5%
+    and its split-R-hat under 1.1."""
+    t0 = time.perf_counter()
+    row = g23h_injected_row(ot, data)
+    model = build_g23h_model(ot, data, row=row, device="cuda", dtype=torch.float32)
+    ref = build_g23h_model(ot, data, row=row, device="cpu", dtype=torch.float64)
+    reference_phase("g23h injection", model, ref,
+                    _points_near(ref, g23h_injection_truth(ref), 64, seed=16))
+    res = fit_phase(ot, kk, osk, model, f"g23h injection ({G23H_ADAPTATION} + {G23H_ITERATIONS})",
+                    CHAINS, G23H_ADAPTATION, G23H_ITERATIONS,
+                    init_kwargs={"n_opt_steps": G23H_OPT_STEPS}, rhat_gate=False,
+                    orbit_fixed=True)
+    names = model.parameter_names
+    k = names.index("b_mass")
+    mass = np.asarray(res["chain"]["b_mass"]).ravel()
+    mean, sd = float(mass.mean()), float(mass.std())
+    truth = G23H_INJECTION["b_mass"]
+    pull, rel, rhat = abs(mean - truth) / max(sd, 1e-6), abs(mean - truth) / truth, float(res["rhat"][k])
+    log(f"  b_mass {mean:.4f} +- {sd:.4f} (injected {truth}): pull {pull:.3f} (limit 5), relative "
+        f"error {rel:.4f} (limit 0.05), split-R-hat {rhat:.5f} (limit 1.1); max split-R-hat "
+        f"{float(np.nanmax(res['rhat'])):.5f} on {names[int(np.nanargmax(res['rhat']))]}")
+    if not (pull < 5.0 and rel < 0.05 and rhat < 1.1):
+        raise AssertionError("g23h injection: the injected mass was not recovered")
+    res["mass"] = (mean, sd)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"g23h injection phase: {res['seconds']:.2f} s")
+    return res
+
+
+def g23h_pt_phase(ot, kk, osk, data) -> dict:
+    """examples/06 through `octofit_pigeons`: its model (marginalized epochs,
+    D = 98) in float32 on the card, checked against a float64 CPU model,
+    `initialize` (G23H_OPT_STEPS Adam steps), then G23H_PT_ROUNDS rounds at
+    G23H_PT_KWARGS, every launch count set to 0 just before the
+    initialization. Gates: finite draws and log-evidence, swaps accepted on
+    every pair between two annealed rungs (SWAP_REJECTION_MAX), the fused
+    pair on every annealed evaluation and every components pass. Prints
+    R-hat, the barriers and b_mass."""
+    t0 = time.perf_counter()
+    model = build_g23h_example_model(ot, data, device="cuda", dtype=torch.float32)
+    ref = build_g23h_example_model(ot, data, device="cpu", dtype=torch.float64)
+    reference_phase("g23h example", model, ref,
+                    _points_near(ref, g23h_example_point(ref), 64, seed=17))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kk, osk)
+    t_init = time.perf_counter()
+    model.initialize(gen, verbosity=1, n_opt_steps=G23H_OPT_STEPS)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    init_launches = _launches(kk, osk)
+    chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=G23H_PT_ROUNDS, verbosity=1,
+                                     **G23H_PT_KWARGS)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    sampling = {k: launches[k] - init_launches[k] for k in launches}
+    names = model.parameter_names
+    x = np.stack([chain[n] for n in names], axis=-1)
+    ess, rhat = ot.ess_rhat_batch_device(x)
+    n_evals, n_sweeps, t_sampling = info["n_grad_evals"], info["n_sweeps"], info["sampling_time_s"]
+    W = G23H_PT_KWARGS["n_walkers"]
+    NT = G23H_PT_KWARGS["n_chains"] + G23H_PT_KWARGS["n_chains_variational"]
+    mass = np.asarray(chain["b_mass"]).ravel()
+    log(f"g23h PT (examples/06): {W} walkers x ({G23H_PT_KWARGS['n_chains']} + "
+        f"{G23H_PT_KWARGS['n_chains_variational']}) rungs = {W * NT} rows, ChEES explorer capped at "
+        f"{G23H_PT_KWARGS['explorer_n_leapfrog']}, {G23H_PT_ROUNDS} rounds ({n_sweeps} sweeps), "
+        f"float32, D = {model.D}")
+    for r in info["rounds"]:
+        log(f"  round {r['round']}: {r['sweeps']} sweeps in {r['seconds']:.2f} s; barrier "
+            f"{r['barrier']:.3f}, variational barrier {r['barrier_variational']:.3f}")
+    log(f"  init {t_init:.2f} s, sampling {t_sampling:.2f} s; batched annealed gradient evaluations "
+        f"{n_evals} ({t_sampling / n_evals * 1e6:.1f} us each, sweeps included), components "
+        f"passes {n_sweeps}")
+    log(f"  recorded draws {x.shape[0]} chains x {x.shape[1]}; max split-R-hat "
+        f"{float(np.nanmax(rhat)):.5f} on {names[int(np.nanargmax(rhat))]}, b_mass split-R-hat "
+        f"{float(rhat[names.index('b_mass')]):.5f}; min ESS {float(np.nanmin(ess)):.1f}")
+    log(f"  log-evidence {info['logevidence']:.3f} (se {info['logevidence_se']:.3f}), barrier "
+        f"{info['global_barrier']:.3f}, variational barrier {info['global_barrier_variational']:.3f}, "
+        f"round trips {info['n_round_trips']}")
+    log(f"  swap rejection {np.round(info['swap_rejection'], 4).tolist()}")
+    log(f"  b_mass median {float(np.median(mass)):.4f} Mjup, 5-95% {float(np.percentile(mass, 5)):.4f}"
+        f" - {float(np.percentile(mass, 95)):.4f}")
+    log(f"  kernel launches: initialization {init_launches}, sampling {sampling}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not bool(np.isfinite(x).all()):
+        raise AssertionError("g23h PT: non-finite draws")
+    if not all(np.isfinite(info[k]) for k in
+               ("logevidence", "global_barrier", "global_barrier_variational")):
+        raise AssertionError("g23h PT: non-finite log-evidence or barrier")
+    inner = [j for j in range(NT - 1) if j not in (0, G23H_PT_KWARGS["n_chains"] - 1, NT - 2)]
+    worst = max(inner, key=lambda j: info["swap_rejection"][j])
+    log(f"  swap rejection between annealed rungs at most {info['swap_rejection'][worst]:.4f} "
+        f"(pair {worst}; limit {SWAP_REJECTION_MAX})")
+    if not info["swap_rejection"][worst] < SWAP_REJECTION_MAX:
+        raise AssertionError(f"g23h PT: swaps across pair {worst} were all but never accepted")
+    if sampling["orbit_solve_fwd"] < n_evals + n_sweeps or sampling["orbit_solve_bwd"] < n_evals:
+        raise AssertionError(f"g23h PT: the fused pair was launched {sampling} times, fewer than "
+                             f"the {n_evals} evaluations (+ {n_sweeps} components passes)")
+    res = {"launches": launches, "n_evals": n_evals, "t_init": t_init, "t_sampling": t_sampling,
+           "rhat": float(np.nanmax(rhat)), "logevidence": info["logevidence"],
+           "seconds": time.perf_counter() - t0}
+    log(f"g23h PT phase: {res['seconds']:.2f} s")
+    return res
+
+
+def obs_prior_phase(ot, kk, osk, directory) -> dict:
+    """The observable and stability priors with photometry
+    (`build_obs_prior_model`, its Sonora grid written into `directory`): one
+    float64 value-and-gradient at CHAINS points (the valid point, one row
+    breaking each hard prior, 1,024 points near the valid one, prior draws)
+    on the card, held to the CPU. Gates: the violation rows -inf with
+    finite (zero) gradients, the valid ones finite, the fused pair once each
+    way per planet."""
+    t0 = time.perf_counter()
+    sonora = write_sonora_grid(directory)
+    table = bench_table(ot)
+    model = build_obs_prior_model(ot, table, sonora, device="cuda", dtype=torch.float64)
+    ref = build_obs_prior_model(ot, table, sonora, device="cpu", dtype=torch.float64)
+    nat = obs_prior_points(ref)
+    theta = torch.cat([ref.link(ref.tensor(nat)), _points_near(ref, nat[0], 1024, seed=18),
+                       ref.link(ref.sample_priors(torch.Generator().manual_seed(19),
+                                                  CHAINS - len(nat) - 1024))])
+    out = _card_evaluation("observable priors", kk, osk, model, ref, theta)
+    lp, g = out["lp"], out["g"]
+    n_fin = int(torch.isfinite(lp).sum())
+    log(f"  observable priors: rows 1-3 (crossing, order, Hill) {lp[1:4].tolist()}; "
+        f"{n_fin} of {len(lp)} rows finite; gradients finite everywhere: "
+        f"{bool(torch.isfinite(g).all())}")
+    if (not bool(torch.isfinite(lp[[0, 4]]).all()) or bool(torch.isfinite(lp[1:4]).any())
+            or not bool(torch.isfinite(g).all()) or not bool((g[~torch.isfinite(lp)] == 0).all())):
+        raise AssertionError("observable priors: a violation row is finite or a gradient is not")
+    expected = {"kepler_solve": 0, "orbit_solve_fwd": 2, "orbit_solve_bwd": 2}
+    if any(out["launches"][k] != v for k, v in expected.items()):
+        raise AssertionError(f"observable priors: launches {out['launches']}, expected {expected}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"observable-prior phase: {out['seconds']:.2f} s")
+    return out
+
+
+def g23h_phases(ot, kk, osk, elements, kepler_mod, kernel_step=True) -> dict:
+    """The G23H evaluations, the injection fit, examples/06 through PT and
+    the observable priors (their files in a temporary directory), then,
+    with `kernel_step`, `g23h_kernel_step`."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as directory:
+        data = g23h_data(directory)
+        res["eval"] = g23h_evaluation_phase(ot, kk, osk, data)
+        res["fit"] = g23h_injection_phase(ot, kk, osk, data)
+        res["pt"] = g23h_pt_phase(ot, kk, osk, data)
+        res["obs"] = obs_prior_phase(ot, kk, osk, directory)
+    if kernel_step:
+        g23h_kernel_step(kk, osk, elements, kepler_mod, res)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"g23h and observable-prior phases: {res['seconds']:.2f} s")
+    return res
+
+
+def g23h_kernel_step(kk, osk, elements, kepler_mod, res) -> None:
+    """The standalone Kepler kernel held to its twin at the shape the
+    AbsoluteVisual G23H evaluation of `res` launched it with (float64), and
+    the fused pair against its plain versions at (CHAINS, 140) in float64
+    (the evaluations) and float32 (the fits); the rows go into `res`."""
+    t_step = time.perf_counter()
+    res["kepler_shapes"] = res["eval"][ABSOLUTE]["kepler_shapes"]
+    res["kepler"] = kepler_path_phase(kk, kepler_mod, res["kepler_shapes"], (torch.float64,))
+    n_epochs = res["eval"][ABSOLUTE]["n_epochs"]
+    res["shape"] = f"({CHAINS}, {n_epochs})"
+    res["pair"] = orbit_shapes_phase(osk, elements, ((res["shape"], CHAINS, n_epochs, G23H_SPAN,
+                                                      None),), (torch.float32, torch.float64))
+    log(f"g23h kernel step: {time.perf_counter() - t_step:.2f} s")
+
+
+def g23h_kernel_keys(kernels, res) -> None:
+    """The G23H and observable-prior paths' entries of the `kernels` line:
+    every kernel's launches on each (`g23h_launches` by basis for one
+    evaluation, `g23h_fit_launches`, `g23h_pt_launches`,
+    `obs_prior_launches`); the Kepler kernel at the AbsoluteVisual
+    evaluation's shape (float64) and the fused pair at (CHAINS, 140) in
+    float64 under `g23h_*` and in float32 under `g23h_f32_*`."""
+    f32, f64 = torch.float32, torch.float64
+    for k in kernels:
+        name = k["name"]
+        k["g23h_launches"] = {b: res["eval"][b]["launches"].get(name, 0)
+                              for b in ("Visual{KepOrbit}", ABSOLUTE)}
+        k["g23h_fit_launches"] = res["fit"]["launches"].get(name, 0)
+        k["g23h_pt_launches"] = res["pt"]["launches"].get(name, 0)
+        k["obs_prior_launches"] = res["obs"]["launches"].get(name, 0)
+        if name == "kepler_solve":
+            shape = max(res["kepler_shapes"], key=lambda s: int(np.prod(s)))
+            row = res["kepler"][(shape, f64)]
+            bnd = bound_ms(24 * row["n"], OPS_KEPLER * row["n"], f64)
+            k.update({"g23h_shape": str(shape), "g23h_dtype": "float64",
+                      "g23h_max_abs_err": row["err"], "g23h_ms": row["ms"],
+                      "g23h_plain_ms": row["plain_ms"], "g23h_bound_ms": bnd[0],
+                      "g23h_bound_by": bnd[1]})
+        elif name.startswith("orbit_solve"):
+            part = name.removeprefix("orbit_solve_")
+            b = CHAINS
+            t = res["eval"][ABSOLUTE]["n_epochs"]
+            words = 8 * b + t + 14 * b * t if part == "fwd" else 8 * b + t + 15 * b * t + 8 * b
+            ops = (OPS_ORBIT_FWD if part == "fwd" else OPS_ORBIT_BWD) * b * t
+            for key, dtype in (("g23h", f64), ("g23h_f32", f32)):
+                row = res["pair"][part][(res["shape"], dtype)]
+                bnd = bound_ms(dtype.itemsize * words, ops, dtype)
+                k.update({f"{key}_shape": res["shape"], f"{key}_dtype": str(dtype).removeprefix("torch."),
+                          f"{key}_max_abs_err": row["err"], f"{key}_ms": row["ms"],
+                          f"{key}_plain_ms": row["plain_ms"], f"{key}_bound_ms": bnd[0],
+                          f"{key}_bound_by": bnd[1]})
+
+
+# After the main path, the longest paths run in processes of their own
+# (`_Workers`), each on the same card beside this one: an evaluation keeps
+# the card busy for under a fifth of its host time (PERF.md §5), so the
+# processes' host dispatch overlaps. Each job is one module-level function
+# of (ot, kk, osk, state) whose result crosses back through `_portable`;
+# every kernel check and timing against a plain version runs in this
+# process once the jobs have ended, with the card to itself.
+WORKER_THREADS = 2  # torch's CPU threads in each job's process
+
+
+def _job_nuts_joint(ot, kk, osk, state) -> dict:
+    """NUTS and HMC on the headline model from the main path's starting
+    points and Laplace covariance, then the joint fit."""
+    model = build_model(ot, bench_table(ot), device="cuda", dtype=torch.float32)
+    model.starting_points = model.tensor(state["starting_points"])
+    model.laplace_sigma = model.tensor(state["laplace_sigma"])
+    nuts = nuts_path_phase(ot, kk, osk, model)
+    joint = joint_path_phase(ot, kk, osk, CHAINS, JOINT_ADAPTATION, JOINT_ITERATIONS)
+    return {"nuts": nuts, "joint": joint}
+
+
+def _job_discrete(ot, kk, osk, state) -> dict:
+    """The calibration fit, then the outlier fit from its starting points."""
+    cal = calibration_phase(ot, kk, osk)
+    return {"cal": cal, "outlier": outlier_phase(ot, kk, osk, cal["model"])}
+
+
+def _job_rvgp_absolute(ot, kk, osk, state) -> dict:
+    """The RV-GP fit, then the absolute-astrometry paths, without their
+    kernel checks."""
+    from octofitter_tpu_torch.orbits import elements
+    from octofitter_tpu_torch.orbits import kepler as kepler_mod
+
+    rvgp = rvgp_phase(ot, kk, osk, checks=False, kepler_rows=False)
+    absolute = absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod,
+                                          kernel_steps=False)
+    return {"rvgp": rvgp, "absolute": absolute}
+
+
+JOBS = {"nuts_joint": _job_nuts_joint, "discrete": _job_discrete,
+        "rvgp_absolute": _job_rvgp_absolute}
+_DROPPED = object()
+
+
+def _portable(obj):
+    """`obj` with what another process cannot load left out (models,
+    chains) and tensors moved to the host."""
+    if isinstance(obj, dict):
+        out = {k: _portable(v) for k, v in obj.items()}
+        return {k: v for k, v in out.items() if v is not _DROPPED}
+    if isinstance(obj, (list, tuple)):
+        out = [_portable(v) for v in obj]
+        return _DROPPED if _DROPPED in out else type(obj)(out)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if obj is None or isinstance(obj, (bool, int, float, str, np.ndarray, np.generic,
+                                       torch.dtype)):
+        return obj
+    return _DROPPED
+
+
+def _worker(job, state, log_path, out_path, repo) -> None:
+    """A job's process: runs JOBS[job], its log in `log_path` and its
+    portable result pickled into `out_path`; exits 1 on any failure."""
+    import pickle
+    import traceback
+
+    with open(log_path, "w", buffering=1) as f, contextlib.redirect_stdout(f), \
+            contextlib.redirect_stderr(f):
+        try:
+            sys.path.insert(0, repo)
+            torch.set_num_threads(WORKER_THREADS)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            import octofitter_tpu_torch as ot
+            from octofitter_tpu_torch.orbits.kernels import kepler as kk
+            from octofitter_tpu_torch.orbits.kernels import orbit_solve as osk
+
+            t0 = time.perf_counter()
+            res = _portable(JOBS[job](ot, kk, osk, state))
+            log(f"job {job}: {time.perf_counter() - t0:.2f} s in its own process")
+            with open(out_path, "wb") as g:
+                pickle.dump(res, g)
+        except BaseException:
+            traceback.print_exc()
+            f.flush()
+            os._exit(1)
+
+
+class _Workers:
+    """The jobs' processes (spawned: CUDA does not survive a fork), their
+    logs and results under `directory`; leaving the block stops every
+    process still running."""
+
+    def __init__(self, directory):
+        import multiprocessing
+
+        self.ctx = multiprocessing.get_context("spawn")
+        self.directory = Path(directory)
+        self.procs = {}
+        self.joined = set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        for job, proc in self.procs.items():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            if exc_type is not None and job not in self.joined:
+                self._print_log(job, proc)
+        return False
+
+    def start(self, job, state=None) -> None:
+        proc = self.ctx.Process(
+            target=_worker, name=job,
+            args=(job, state, str(self.directory / f"{job}.log"),
+                  str(self.directory / f"{job}.pkl"), str(Path(__file__).resolve().parent)))
+        proc.start()
+        self.procs[job] = proc
+
+    def _print_log(self, job, proc) -> None:
+        path = self.directory / f"{job}.log"
+        log(f"--- job {job} (process {proc.pid}, exit code {proc.exitcode}): its log ---")
+        log(path.read_text().rstrip() if path.exists() else "(no log)")
+        log(f"--- end of job {job} ---")
+
+    def join(self, job) -> dict:
+        """Wait for `job`, print its log, and return its result; raise if
+        it failed."""
+        import pickle
+
+        proc = self.procs[job]
+        proc.join()
+        self.joined.add(job)
+        self._print_log(job, proc)
+        if proc.exitcode != 0:
+            raise AssertionError(f"job {job} failed (exit code {proc.exitcode})")
+        with open(self.directory / f"{job}.pkl", "rb") as f:
+            return pickle.load(f)
+
+
 def main() -> int:
+    import tempfile
+
     t_main = time.perf_counter()
 
     def elapsed(after):
@@ -3064,39 +3846,52 @@ def main() -> int:
     elapsed("kepler_path_phase")
     fused_vs_composed_phase(ot, main["model"], main["chain"], main["table"], CHAINS)
     elapsed("fused_vs_composed_phase")
-    nuts = nuts_path_phase(ot, kk, osk, main["model"])
-    elapsed("nuts_path_phase")
-    joint = joint_path_phase(ot, kk, osk, CHAINS, JOINT_ADAPTATION, JOINT_ITERATIONS)
-    elapsed("joint_path_phase")
+
+    # the jobs beside this process's own paths; then the jobs' results
+    threads = torch.get_num_threads()
+    with tempfile.TemporaryDirectory() as directory, _Workers(directory) as workers:
+        workers.start("nuts_joint", {"starting_points": main["model"].starting_points.cpu(),
+                                     "laplace_sigma": main["model"].laplace_sigma.cpu()})
+        workers.start("discrete")
+        workers.start("rvgp_absolute")
+        log("started jobs nuts_joint, discrete and rvgp_absolute in processes of their own")
+        cpus = min(threads, len(os.sched_getaffinity(0)))
+        torch.set_num_threads(max(WORKER_THREADS, cpus - len(workers.procs) * WORKER_THREADS))
+        pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
+        elapsed("pt_path_phase")
+        pt_nuts = pt_nuts_phase(ot, kk, osk, pt["model"])
+        elapsed("pt_nuts_phase")
+        rej = rejection_phase(ot, kk, osk)
+        elapsed("rejection_phase")
+        cap = cap_phase(ot, kk, osk)
+        elapsed("cap_phase")
+        g23h = g23h_phases(ot, kk, osk, elements, kepler_mod, kernel_step=False)
+        elapsed("g23h_phases")
+        done = {job: workers.join(job) for job in ("nuts_joint", "discrete", "rvgp_absolute")}
+        elapsed("the jobs")
+    torch.set_num_threads(threads)
+    nuts, joint = done["nuts_joint"]["nuts"], done["nuts_joint"]["joint"]
+    cal, outlier = done["discrete"]["cal"], done["discrete"]["outlier"]
+    rvgp, absolute = done["rvgp_absolute"]["rvgp"], done["rvgp_absolute"]["absolute"]
+
+    # every kernel against its plain version at the shapes the paths gave it
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
-    elapsed("kepler_path_phase")
-    pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
-    elapsed("pt_path_phase")
     ptres = kepler_path_phase(kk, kepler_mod, pt["kepler_shapes"])
-    elapsed("kepler_path_phase")
-    pt_nuts = pt_nuts_phase(ot, kk, osk, pt["model"])
-    elapsed("pt_nuts_phase")
-    rej = rejection_phase(ot, kk, osk)
-    elapsed("rejection_phase")
     rres = kepler_path_phase(kk, kepler_mod, rej["kepler_shapes"])
-    elapsed("kepler_path_phase")
+    cres = kepler_path_phase(kk, kepler_mod, cal["kepler_shapes"])
+    elapsed("kepler_path_phase (joint, PT, rejection, calibration)")
     diagnostics_phase(ot, [("headline", main["x"]), ("joint", joint["x"])])
     elapsed("diagnostics_phase")
-    cal = calibration_phase(ot, kk, osk)
-    elapsed("calibration_phase")
-    cres = kepler_path_phase(kk, kepler_mod, cal["kepler_shapes"])
-    elapsed("kepler_path_phase")
-    outlier = outlier_phase(ot, kk, osk, cal["model"])
-    elapsed("outlier_phase")
-    cap = cap_phase(ot, kk, osk)
-    elapsed("cap_phase")
     dres = discrete_kernel_phase(osk, elements)
     elapsed("discrete_kernel_phase")
-    rvgp = rvgp_phase(ot, kk, osk)
-    elapsed("rvgp_phase")
-    gres = rvgp["kepler_rows"]
-    absolute = absolute_astrometry_phases(ot, kk, osk, elements, kepler_mod)
-    elapsed("absolute_astrometry_phases")
+    rvgp.update(rvgp_phase(ot, kk, osk, fit=False))
+    t_step = time.perf_counter()
+    gres = kepler_path_phase(kk, kepler_mod, rvgp["kepler_shapes"])
+    log(f"rv-gp Kepler step: {time.perf_counter() - t_step:.2f} s")
+    elapsed("rvgp checks")
+    absolute_kernel_step(kk, osk, elements, kepler_mod, absolute)
+    g23h_kernel_step(kk, osk, elements, kepler_mod, g23h)
+    elapsed("absolute-astrometry and g23h kernel steps")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -3317,6 +4112,7 @@ def main() -> int:
         })
     kernels[-1]["associative"] = rvgp["extra"]["assoc"]
     absolute_kernel_keys(kernels, absolute)
+    g23h_kernel_keys(kernels, g23h)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

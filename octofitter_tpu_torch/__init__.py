@@ -5,7 +5,11 @@ The same model-building API as the JAX package (`Planet`, `System`,
 `AbsoluteVisual{KepOrbit}`, Cartesian, FixedPosition, hyperbolic),
 `PlanetRelAstromObs`, `HGCAInstantaneousObs`, the absolute-astrometry
 likelihoods (`HipparcosIADObs`, the HGCA linear-fit `HGCAObs`,
-`GaiaDR4AstromObs`; `astrom/`, without G23H), the RV
+`GaiaDR4AstromObs` and the G23H composite `G23HObs`; `astrom/`), the
+observable and stability priors (`ObsPriorAstromONeil2019`,
+`LimitClosestApproachAUPrior`, `NonCrossingPrior`, `HillStabilityPrior`,
+`PlanetOrderPrior`), `PhotometryObs` with the Sonora and BHAC15
+interpolators (`atmosphere`), the RV
 likelihoods with Gaussian-process noise (dense kernels and celerite
 terms) and the RV archive loaders, the continuous priors,
 `LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
@@ -62,6 +66,13 @@ from .likelihoods import (
     HGCAInstantaneousObs,
     HGCAInstantaneousLikelihood,
     gaia_plx,
+    PhotometryObs,
+    PhotometryLikelihood,
+    ObsPriorAstromONeil2019,
+    LimitClosestApproachAUPrior,
+    NonCrossingPrior,
+    HillStabilityPrior,
+    PlanetOrderPrior,
 )
 from . import astrom
 from .astrom import (
@@ -73,7 +84,11 @@ from .astrom import (
     HGCALikelihood,
     GaiaDR4AstromObs,
     GaiaDR4Astrom,
+    G23HObs,
+    G23HLikelihood,
 )
+from . import atmosphere
+from .atmosphere import sonora_photometry_interpolator, sonora_cooling_interpolator
 from . import rv
 from .rv import (
     StarAbsoluteRVObs,

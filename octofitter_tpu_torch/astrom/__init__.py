@@ -1,10 +1,10 @@
 """Absolute astrometry stack: ephemeris, scan laws, LSQ fits, Hipparcos
-IAD, Gaia catalog fits, HGCA linear-fit, Gaia DR4 epoch astrometry.
+IAD, Gaia catalog fits, HGCA linear-fit, Gaia DR4 epoch astrometry and
+the G23H composite model.
 
-PyTorch port of `octofitter_tpu/astrom/` without the G23H composite model
-(`g23h.py`, `g23h_catalog.py`), which is still to port. The ephemeris,
-scan-law, Gaia catalog container and IAD parsing are numpy copies; the
-likelihoods write the chain axis out.
+PyTorch port of `octofitter_tpu/astrom/`. The ephemeris, scan-law, Gaia
+catalog container, IAD parsing and G23H catalog loader are numpy copies;
+the likelihoods write the chain axis out.
 """
 
 from .ephemeris import earth_position_au, geocentre_position_query
@@ -46,6 +46,8 @@ from .hipparcos import (
 from .gaia import GaiaCatalogFitLikelihood, GaiaCatalogFitObs
 from .hgca_linfit import HGCALikelihood, HGCAObs
 from .gaia_dr4 import GaiaDR4Astrom, GaiaDR4AstromObs
+from .g23h import G23HLikelihood, G23HObs, noncentral_chi2_logpdf
+from .g23h_catalog import load_g23h_catalog_row
 
 __all__ = [
     "earth_position_au",
@@ -83,4 +85,8 @@ __all__ = [
     "HGCALikelihood",
     "GaiaDR4Astrom",
     "GaiaDR4AstromObs",
+    "G23HObs",
+    "G23HLikelihood",
+    "noncentral_chi2_logpdf",
+    "load_g23h_catalog_row",
 ]

@@ -158,6 +158,15 @@ class PlanetRelAstromObs(AbstractObs):
         new.seppa = self.seppa
         return new
 
+    def likeobj_from_epoch_subset(self, idx):
+        """A copy holding the epochs `idx` only."""
+        new = object.__new__(type(self))
+        AbstractObs.__init__(new, variables=None, name=self.name)
+        new.var_specs = self.var_specs
+        new.table = {k: np.asarray(v)[idx] for k, v in self.table.items()}
+        new.seppa = self.seppa
+        return new
+
 
 # Backwards-compat alias, as in the reference (`relative-astrometry.jl:98`)
 PlanetRelAstromLikelihood = PlanetRelAstromObs

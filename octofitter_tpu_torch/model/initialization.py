@@ -141,8 +141,17 @@ def initialize(
             return 1e100, np.zeros_like(g)
         return v, np.where(np.isfinite(g), g, 0.0)
 
-    res = minimize(fun, theta_star, jac=True, method="L-BFGS-B",
-                   options=dict(maxiter=500))
+    # one point at a time: on the CPU, torch's worker threads and the BLAS
+    # threads that scipy's L-BFGS wakes spin against each other (an
+    # evaluation of the G23H model took 80 ms so against 13 ms alone)
+    threads = torch.get_num_threads()
+    if model.device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        res = minimize(fun, theta_star, jac=True, method="L-BFGS-B",
+                       options=dict(maxiter=500))
+    finally:
+        torch.set_num_threads(threads)
     if np.isfinite(res.fun) and -res.fun >= best_lp:
         theta_star = res.x
     theta_star_t = model.tensor(theta_star)

@@ -38,7 +38,8 @@ import chip_smoke
 # The names of APPENDIX_A that the port exports (27 before the discrete
 # slice, which added the next 8; the RV-GP slice added the RV archive
 # loaders and radvel_posterior, the next 7; the absolute-astrometry slice
-# the last 6).
+# the next 6; the G23H slice the last 11: G23H, the observable and
+# stability priors, photometry and the Sonora interpolators).
 PORTED = [
     "Planet", "System", "UniformCircular", "Sine", "KDEDist", "theta_at_epoch_to_tperi",
     "ofti_linear_solve", "likelihoodname", "PlanetRelAstromObs", "PlanetRelAstromLikelihood",
@@ -52,6 +53,9 @@ PORTED = [
     "Lick_rvs", "CES_lc_rvs", "CES_vlc_rvs", "radvel_posterior",
     "HGCAObs", "HGCALikelihood", "HipparcosIADObs", "HipparcosIADLikelihood",
     "GaiaDR4AstromObs", "GaiaDR4Astrom",
+    "G23HObs", "G23HLikelihood", "ObsPriorAstromONeil2019", "PlanetOrderPrior",
+    "NonCrossingPrior", "LimitClosestApproachAUPrior", "HillStabilityPrior", "PhotometryObs",
+    "PhotometryLikelihood", "sonora_photometry_interpolator", "sonora_cooling_interpolator",
 ]
 
 
