@@ -203,16 +203,43 @@ non-zero:
    value-and-gradient at 4096 points held to the CPU, the rows that break
    each hard prior -inf with finite gradients; then the Kepler kernel at
    the AbsoluteVisual evaluation's (4096, 140) in float64 and the fused
-   pair at (4096, 140) in both precisions, against their plain versions.
+   pair at (4096, 140) in both precisions, against their plain versions;
+27. `examples/05_images_interferometry_transits.py`'s three fits on the
+   example's data (`ex05_data`: the image's blob at the image frame's
+   -RA, see EX05_TRUE), each checked against a float64 CPU model at 64
+   prior draws, then `octofit` with initialization at 4096 chains,
+   EX05_ADAPTATION + EX05_ITERATIONS, ChEES at most 2^8 leapfrog steps: the
+   101 x 101 image (`ImageObs`, a and the flux free) and the OIFITS closure
+   phases (`InterferometryObs` from a file the port's `write_bintables`
+   wrote, a and the contrast free) in float32, the 120-epoch transit
+   (`LightCurveObs`, quadratic limb darkening, the radius ratio free) in
+   float64 (EX05_DTYPE says why); gates: those of 5 (the forward alone for
+   the transit's fixed orbit) and each posterior mean within EX05_GATES of
+   the injected value, the interferometry's also within EX05_IF_REF_SD
+   standard deviations of its posterior on a grid without the port's
+   likelihood (`ex05_if_reference`); each fit's evaluation profile at 4096
+   prior draws; then the planted faults (`ex05_planted_fault`: RA's sign
+   in the image frame, the closure phases' sign) fitted the same way at
+   1,024 chains, which must fail those gates;
+28. one float64 value-and-gradient at 4096 prior draws of a likelihood map
+   (`LogLikelihoodMapObs`, two 51 x 51 maps at 25 mas/px) and of GRAVITY
+   kernel phases (`GRAVITYWideKPObs`, 6 baselines, 4 triangles, 14
+   wavelengths) on the card, held to the CPU: rows off the map at the fill
+   value, GRAVITY's rows whose covariance is not positive definite -inf
+   with zero gradients, the fused pair once each way;
+29. the Kepler kernel at each fit's Laplace shape in its dtype, and the
+   fused pair at (4096, 1) in both precisions, (4096, 2) and (4096, 120) in
+   float64, against their plain versions.
 
-Phases 1-7 run in this process alone. Then three jobs start, each in a
+Phases 1-7 run in this process alone. Then four jobs start, each in a
 process of its own on the same card (`_Workers`): 8 and 9; 14 and 15; the
-RV-GP fit of 18 and 19-22. Beside them this process runs 10-12, 16 and
-23-26. An evaluation keeps the card busy for under a fifth of its host
-time, so the processes' host dispatch overlaps; their fits' times are
+RV-GP fit of 18 and 19-22; 27 and 28. Beside them this process runs 10-12,
+16 and 23-26. An evaluation keeps the card busy for under a fifth of its
+host time, so the processes' host dispatch overlaps; their fits' times are
 taken with the card shared. Once the jobs have ended, with the card to
 this process again: every kernel check and timing against a plain version
-that 9, 10, 12, 14, 18, 22 and 26 call for, 13, 17, and the checks of 18.
+that 9, 10, 12, 14, 18, 22, 26 and 29 call for, 13, 17, and the checks of
+18.
 A job that fails fails the script, with its log printed; the processes
 end with the script.
 
@@ -251,7 +278,10 @@ HGCA fit's shape (`hgca_*`) and at the DR4 evaluations' (`dr4_*`, float64);
 every kernel carries the launches of 23-26 (`g23h_launches` by basis,
 `g23h_fit_launches`, `g23h_pt_launches`, `obs_prior_launches`), the Kepler
 kernel and the fused pair their rows at (4096, 140) (`g23h_*`, float64; the
-pair also `g23h_f32_*`);
+pair also `g23h_f32_*`); every kernel carries the launches of 27-28
+(`ex05_launches`), the Kepler kernel its rows at the fits' Laplace shapes
+(`ex05_kepler`), the fused pair its rows at 29's shapes (`ex05_*`,
+`ex05_f64_*`, `ex05_map_*`, `ex05_transit_*`);
 the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -1067,7 +1097,7 @@ def _launches(kk, osk) -> dict:
 
 
 def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
-              init_kwargs=None, rhat_gate=True, orbit_fixed=False) -> dict:
+              init_kwargs=None, rhat_gate=True, orbit_fixed=False, max_depth=None) -> dict:
     """`octofit` with initialization on `model` (`initialize` first with
     `init_kwargs` where given, e.g. a guess), with every launch count
     set to 0 just before and read just after, scored by the device
@@ -1079,7 +1109,7 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
     batched gradient evaluation (the forward alone where `orbit_fixed`:
     no parameter reaches the orbit); a model without one solves its orbits
     with the standalone Kepler kernel, which must then run on every
-    evaluation."""
+    evaluation. `max_depth` caps ChEES at 2^max_depth leapfrog steps."""
     fused_pair = any(issubclass(p.basis, (ot.KepOrbit, ot.VisualOrbit))
                      for p in model.system.planets)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1088,8 +1118,8 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
     t0 = time.perf_counter()
     if init_kwargs is not None:
         model.initialize(gen, verbosity=1, **init_kwargs)
-    chain = ot.octofit(model, chains=chains, adaptation=adaptation,
-                       iterations=iterations, generator=gen, verbosity=1)
+    chain = ot.octofit(model, chains=chains, adaptation=adaptation, iterations=iterations,
+                       generator=gen, verbosity=1, max_depth=max_depth)
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
     launches = _launches(kk, osk)
@@ -1138,7 +1168,7 @@ def fit_phase(ot, kk, osk, model, label, chains, adaptation, iterations,
         raise AssertionError(f"{label}: max split-R-hat {rhat_max} >= 1.05")
     return {"launches": launches, "kepler_shapes": kepler_shapes, "model": model,
             "chain": chain, "x": x, "n_evals": n_evals, "t_sampling": t_sampling,
-            "t_init": t_init, "ess": ess, "rhat": rhat}
+            "t_init": t_init, "ess": ess, "rhat": rhat, "peak_gib": peak_gib}
 
 
 def _gate_median(label, chain, name, truth) -> None:
@@ -2922,6 +2952,251 @@ def obs_prior_points(model):
     return np.array([[r[n] for n in model.parameter_names] for r in rows])
 
 
+# examples/05 (`examples/05_images_interferometry_transits.py`): a direct
+# image, closure phases from an OIFITS file, and a transit light curve, each
+# fitted on its own; the data made as the example makes it (one numpy rng,
+# seed 0, draws the image noise, then the closure-phase noise; the light
+# curve by `generate_from_params` with rng seed 1), with the port's
+# orbitsolve in float64 on the CPU. The example puts its blob at column
+# round(+RA / platescale), mirrored against `ImageObs`'s x = -RA
+# (`images.jl:210-212`): at the truth the model would read column 51.07 of
+# a blob over columns 48-50. The blob here sits at round(-RA / platescale).
+EX05_TRUE = dict(a=12.0, e=0.1, i=0.5, omega=1.0, Omega=2.0, tp=57000.0, M=1.2, plx=30.0)
+EX05_IMAGE = dict(epoch=57400.0, npix=101, platescale=10.0, noise=0.1, blob=3.0)
+EX05_IF = dict(epoch=57500.0, contrast=0.02, cp_noise=0.5)
+EX05_IF_WAVE = np.linspace(2.0e-6, 2.4e-6, 5)
+EX05_IF_UV = (np.array([40.0, -25.0, 65.0]), np.array([15.0, 80.0, -35.0]))  # m
+EX05_TRANSIT = dict(P_days=3.5, tp=57000.0, r=0.1, n=120, sigma=3e-4, R_sun_m=6.957e8,
+                    u1=0.4, u2=0.25)
+# their fits: ChEES at CHAINS chains, the example's depths (300 + 200 with
+# 16 chains; the transit 250 + 150 with 8) cut to EX05_ADAPTATION +
+# EX05_ITERATIONS; the planted-fault fits at EX05_FAULT_CHAINS
+EX05_ADAPTATION, EX05_ITERATIONS = 200, 100
+# and ChEES at most 2^EX05_MAX_DEPTH leapfrog steps, the example's max_depth;
+# the planted-fault fits at EX05_FAULT_CHAINS chains, shorter and capped at
+# 2^EX05_FAULT_MAX_DEPTH steps (a fault's posterior is broad)
+EX05_MAX_DEPTH = 8
+EX05_FAULT_CHAINS, EX05_FAULT_ADAPTATION, EX05_FAULT_ITERATIONS = 1024, 60, 30
+EX05_FAULT_MAX_DEPTH = 5
+# Recovery gates: each free parameter's posterior mean within these of the
+# injected value. The image: the blob covers 3 x 3 pixels (a moves the
+# model ~0.4 AU per pixel here) and the posterior settles on its brightest
+# pixel (a = 11.61 on the CPU), the flux's sd is ~0.26. The interferometry:
+# a within 1.5 AU (the posterior's main mode is a fringe alias at 11.05, see
+# `ex05_if_reference`), the contrast within 0.01 (0.0187 +- 0.0035 on the
+# CPU). The transit: r within 0.002.
+EX05_GATES = {"image": {"b_a": 0.5, "b_nircam_flux": 1.0},
+              "interferometry": {"b_a": 1.5, "b_gravity_f": 0.01},
+              "transit": {"b_r": 0.002}}
+
+
+EX05_TRUTH = {"image": {"b_a": EX05_TRUE["a"], "b_nircam_flux": EX05_IMAGE["blob"]},
+              "interferometry": {"b_a": EX05_TRUE["a"], "b_gravity_f": EX05_IF["contrast"]},
+              "transit": {"b_r": EX05_TRANSIT["r"]}}
+
+
+def _ex05_position(ot, epoch) -> tuple[float, float]:
+    orbit = ot.VisualOrbit.from_params(**EX05_TRUE, device="cpu")
+    sol = ot.orbitsolve(orbit, np.array([epoch]))
+    return float(ot.orbits.raoff(sol)[0]), float(ot.orbits.decoff(sol)[0])
+
+
+def ex05_data(ot, directory) -> dict:
+    """examples/05's three data sets: the image (101 x 101, 10 mas/px),
+    the OIFITS file (3 baselines x 5 wavelengths, one triangle) written
+    into `directory` with the port's `write_bintables`, and the light
+    curve's table (120 epochs)."""
+    from octofitter_tpu_torch.interferometry import closure_phases_deg, cvis_point_sources
+    from octofitter_tpu_torch.io.fits import write_bintables
+
+    rng = np.random.default_rng(0)
+    im = EX05_IMAGE
+    ra, dec = _ex05_position(ot, im["epoch"])
+    img = rng.standard_normal((im["npix"], im["npix"])) * im["noise"]
+    row = int(round(dec / im["platescale"])) + im["npix"] // 2
+    col = int(round(-ra / im["platescale"])) + im["npix"] // 2
+    img[row - 1: row + 2, col - 1: col + 2] += im["blob"]
+
+    dra, ddec = _ex05_position(ot, EX05_IF["epoch"])
+    ucoord, vcoord = EX05_IF_UV
+    u = ucoord[:, None] / EX05_IF_WAVE[None, :]
+    v = vcoord[:, None] / EX05_IF_WAVE[None, :]
+    cvis = cvis_point_sources(u, v, [dra], [ddec], [EX05_IF["contrast"]])
+    cp_true = closure_phases_deg(cvis, [0], [2], [1]).numpy()
+    path = str(Path(directory) / "gravity.oifits")
+    write_bintables(path, [
+        ({"EFF_WAVE": EX05_IF_WAVE}, {"EXTNAME": "OI_WAVELENGTH"}),
+        ({"UCOORD": ucoord, "VCOORD": vcoord, "VIS2DATA": np.abs(cvis.numpy()) ** 2,
+          "VIS2ERR": np.full((3, 5), 0.02), "STA_INDEX": np.array([[1, 2], [1, 3], [2, 3]]),
+          "MJD": np.full(3, EX05_IF["epoch"])}, {"EXTNAME": "OI_VIS2"}),
+        ({"T3PHI": cp_true + rng.standard_normal(cp_true.shape) * EX05_IF["cp_noise"],
+          "T3PHIERR": np.full(cp_true.shape, EX05_IF["cp_noise"]),
+          "STA_INDEX": np.array([[1, 2, 3]]), "MJD": np.full(1, EX05_IF["epoch"])},
+         {"EXTNAME": "OI_T3"}),
+    ])
+
+    tr = EX05_TRANSIT
+    # mid-transit (inferior conjunction) is ~0.932 d before periastron for
+    # this geometry (omega = 0, Omega = 0, i = 90 deg)
+    t_mid = tr["tp"] - 0.932
+    epochs = np.linspace(t_mid - 0.15, t_mid + 0.15, tr["n"])
+    table = dict(epoch=epochs, phot=np.ones(tr["n"]), σ_phot=np.full(tr["n"], tr["sigma"]))
+    gen = build_transit_model(ot, table, device="cpu")
+    nat = gen.tensor([tr["r"] if n == "b_r" else 0.0 for n in gen.parameter_names])
+    system = ot.generate_from_params(gen, gen.arr2nt(nat), add_noise=True,
+                                     rng=np.random.default_rng(1))
+    table = dict(table, phot=system.planets[0].observations[0].table["phot"])
+    return {"image": img, "oifits": path, "lightcurve": table}
+
+
+@contextlib.contextmanager
+def ex05_planted_fault(fault):
+    """A fault planted in the port while the block runs: "image_ra_sign"
+    reads images at x = +RA, "cp_sign" flips the sign of every model
+    closure phase of `InterferometryObs`."""
+    from octofitter_tpu_torch.images import likelihoods as images
+    from octofitter_tpu_torch.interferometry import likelihoods as interferometry
+
+    if fault == "image_ra_sign":
+        module, name = images, "_sky_to_image"
+        plain = module._sky_to_image
+        faulty = lambda ra, dec: plain(-ra, dec)  # noqa: E731
+    elif fault == "cp_sign":
+        module, name = interferometry, "_closure_phases"
+        plain = module._closure_phases
+        faulty = lambda *args: -plain(*args)  # noqa: E731
+    else:
+        raise ValueError(fault)
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, plain)
+
+
+def build_image_model(pkg, image, **model_kw):
+    """examples/05's image fit: a and the flux free (D = 2)."""
+    d = pkg.distributions
+    images = pkg.ImageObs([dict(image=image, epoch=EX05_IMAGE["epoch"],
+                                platescale=EX05_IMAGE["platescale"])],
+                          variables=dict(flux=d.Uniform(0.0, 10.0)), name="nircam")
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}", observations=[images],
+                   variables=dict(a=d.Uniform(5.0, 20.0), e=0.1, i=0.5, omega=1.0,
+                                  Omega=2.0, tp=57000.0))
+    system = pkg.System(name="imgsys", variables=dict(M=1.2, plx=30.0), companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def build_interferometry_model(pkg, oifits, **model_kw):
+    """examples/05's interferometry fit from its OIFITS file, closure
+    phases only: a and the contrast free (D = 2). The example's derived
+    `jnp.asarray([o["f"]])` is `o["f"][..., None]` here, which both
+    packages read: one contrast per planet on a last axis."""
+    d = pkg.distributions
+    vlti = pkg.InterferometryObs([dict(filename=oifits, use_vis2=False)],
+                                 variables=dict(f=d.LogUniform(1e-3, 1e-1),
+                                                flux=lambda s, p, o: o["f"][..., None]),
+                                 name="gravity")
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}", observations=[vlti],
+                   variables=dict(a=d.Uniform(5.0, 20.0), e=0.1, i=0.5, omega=1.0,
+                                  Omega=2.0, tp=57000.0))
+    system = pkg.System(name="ifsys", variables=dict(M=1.2, plx=30.0), companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def build_transit_model(pkg, table, **model_kw):
+    """examples/05's transit fit: a hot Jupiter (P = 3.5 d, edge-on) in
+    front of a Sun-sized star with quadratic limb darkening (0.4, 0.25); the
+    radius ratio free (D = 1)."""
+    d = pkg.distributions
+    tr = EX05_TRANSIT
+    lc = pkg.LightCurveObs(table, name="tess")
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}", observations=[lc],
+                   variables=dict(a=(tr["P_days"] / 365.25) ** (2 / 3), e=0.0, i=np.pi / 2,
+                                  omega=0.0, Omega=0.0, tp=tr["tp"], r=d.Uniform(0.0, 0.3)))
+    system = pkg.System(name="transitsys", companions=[b],
+                        variables=dict(M=1.0, plx=100.0, R=tr["R_sun_m"], u1=tr["u1"],
+                                       u2=tr["u2"]))
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+# One float64 evaluation each of a likelihood map and of GRAVITY kernel
+# phases. The map: tests/test_images_transits.py's 51 x 51 at 25 mas/px
+# around its orbit (a = 10 AU at 50 mas), here two epochs of a smooth
+# Gaussian log-likelihood peaked at the planet, a and e free (D = 2; a's
+# prior reaches past the map's edge, where the fill value holds).
+# GRAVITY: tests/test_misc_components.py's system (one planet, a and e
+# free here) with 6 baselines, 4 triangles and 14 wavelengths; kp_Cy's
+# prior runs past 1, where small jitters leave the covariance not positive
+# definite (D = 5).
+LLMAP_TRUE = dict(a=10.0, e=0.1, i=0.5, omega=1.0, Omega=2.0, tp=57000.0, M=1.2, plx=50.0)
+LLMAP = dict(epochs=(57000.0, 57400.0), npix=51, platescale=25.0, width_px=4.0)
+GRAV_TRUE = dict(a=8.0, e=0.1, i=0.4, omega=1.0, Omega=2.0, tp=57000.0, M=1.3, plx=40.0)
+GRAV = dict(epoch=57000.0, contrast=0.02, n_wave=14, cp_noise=0.2,
+            i1=(0, 0, 1, 3), i2=(3, 4, 5, 4), i3=(1, 2, 2, 5))
+
+
+def llmap_data(ot) -> list:
+    """The likelihood map's rows: one 51 x 51 map per epoch."""
+    n, ps = LLMAP["npix"], LLMAP["platescale"]
+    rows = []
+    orbit = ot.VisualOrbit.from_params(**LLMAP_TRUE, device="cpu")
+    for epoch in LLMAP["epochs"]:
+        sol = ot.orbitsolve(orbit, np.array([epoch]))
+        x0 = -float(ot.orbits.raoff(sol)[0]) / ps + (n - 1) / 2
+        y0 = float(ot.orbits.decoff(sol)[0]) / ps + (n - 1) / 2
+        yy, xx = np.mgrid[0:n, 0:n]
+        ll = -0.5 * ((xx - x0) ** 2 + (yy - y0) ** 2) / LLMAP["width_px"] ** 2
+        rows.append(dict(map=ll, epoch=epoch, platescale=ps))
+    return rows
+
+
+def build_llmap_model(pkg, rows, **model_kw):
+    d = pkg.distributions
+    maps = pkg.LogLikelihoodMapObs(rows, name="llmap")
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}", observations=[maps],
+                   variables=dict(a=d.Uniform(5.0, 25.0), e=d.Uniform(0.0, 0.5),
+                                  **{k: LLMAP_TRUE[k] for k in ("i", "omega", "Omega", "tp")}))
+    system = pkg.System(name="llm", variables=dict(M=LLMAP_TRUE["M"], plx=LLMAP_TRUE["plx"]),
+                        companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def gravity_data(ot) -> dict:
+    """A GRAVITY row: (u, v) drawn with numpy (seed 0) over 6 baselines and
+    14 wavelengths in 2.0-2.4 um, the closure phases of the planet at its
+    truth with 0.2 deg of noise."""
+    from octofitter_tpu_torch.interferometry import closure_phases_deg, cvis_point_sources
+
+    rng = np.random.default_rng(0)
+    n_wave = GRAV["n_wave"]
+    eff_wave = np.linspace(2.0e-6, 2.4e-6, n_wave)
+    u = rng.uniform(-1e8, 1e8, (6, n_wave))
+    v = rng.uniform(-1e8, 1e8, (6, n_wave))
+    i1, i2, i3 = (np.array(GRAV[k]) for k in ("i1", "i2", "i3"))
+    orbit = ot.VisualOrbit.from_params(**GRAV_TRUE, device="cpu")
+    sol = ot.orbitsolve(orbit, np.array([GRAV["epoch"]]))
+    cvis = cvis_point_sources(u, v, [float(ot.orbits.raoff(sol)[0])],
+                              [float(ot.orbits.decoff(sol)[0])], [GRAV["contrast"]])
+    cps = closure_phases_deg(cvis, i1, i2, i3).numpy()
+    return dict(epoch=GRAV["epoch"], u=u, v=v, eff_wave=eff_wave,
+                cps_data=cps + GRAV["cp_noise"] * rng.standard_normal(cps.shape),
+                dcps=np.full(cps.shape, GRAV["cp_noise"]), index_cps1=i1, index_cps2=i2,
+                index_cps3=i3)
+
+
+def build_gravity_model(pkg, row, **model_kw):
+    d = pkg.distributions
+    obs = pkg.GRAVITYWideKPObs([row], name="GRAV", variables=dict(
+        flux=d.Uniform(0.0, 0.2), kp_jitter=d.LogUniform(1e-3, 1.0), kp_Cy=d.Uniform(0.0, 1.5)))
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}",
+                   variables=dict(a=d.Uniform(5.0, 12.0), e=d.Uniform(0.0, 0.3),
+                                  **{k: GRAV_TRUE[k] for k in ("i", "omega", "Omega", "tp")}))
+    system = pkg.System(name="grav", variables=dict(M=GRAV_TRUE["M"], plx=GRAV_TRUE["plx"]),
+                        companions=[b], observations=[obs])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
 @contextlib.contextmanager
 def degrees_one_ulp_off(seed=0, signs=None):
     """Within the block every propagated ra2 and dec2 of an AbsoluteVisual
@@ -3668,6 +3943,297 @@ def g23h_kernel_keys(kernels, res) -> None:
                           f"{key}_bound_by": bnd[1]})
 
 
+# examples/05's fits (phase 27), the likelihood-map and GRAVITY evaluations
+# (28) and the kernels at their shapes (29). The interferometry fit is also
+# held to its posterior computed on a grid without the port's likelihood
+# (`ex05_if_reference`): five closure phases at an SNR near 2 leave fringe
+# aliases of a within a few nats of one another, so on the example's data
+# the posterior's main mode lies at a = 11.05 (a CPU grid over the prior;
+# 64% of the mass within 10.8-11.3 AU, 2.6% within 0.2 AU of the true 12),
+# and with the closure phases' sign flipped at a = 10.95 with a contrast
+# near 0.023: the injected values alone do not tell the two apart. The
+# reference does: means within EX05_IF_REF_SD of its standard deviations
+# over a window of +-EX05_IF_WINDOW AU around the chains' median.
+EX05_IF_WINDOW, EX05_IF_REF_SD = 0.15, 4.0
+# Float32 rounds the light curve's epochs near MJD 57000 by up to 1.9e-3 d
+# (its step is 3.9e-3 d), a sixth of the 0.0115 d ingress: at the injected
+# radius ratio the float32 model's ln_post is 147 nats below float64's (on
+# the CPU). The transit runs in float64.
+EX05_DTYPE = {"image": torch.float32, "interferometry": torch.float32,
+              "transit": torch.float64}
+# The initialization: the config's defaults, the transit with the example's
+# 64 multistarts of 300 steps and 10,000 prior draws (the config's 100,000,
+# each over 120 epochs x 64 nodes, took the run to 59.4 GiB of the card)
+EX05_INIT = {"image": None, "interferometry": None,
+             "transit": dict(n_multistart=64, n_opt_steps=300, n_prior_samples=10_000)}
+EX05_FAULTS = {"image": ("image_ra_sign",), "interferometry": ("cp_sign",), "transit": ()}
+
+
+def ex05_if_reference(ot, oifits, a_mid) -> dict:
+    """The interferometry fit's posterior without the port's likelihood:
+    on a grid of a (601 points over a_mid +- EX05_IF_WINDOW, inside the
+    prior) x log f (240 cells over the LogUniform prior, where its density
+    is flat), the closure phases of host and companion at each a's
+    position (the port's orbitsolve, float64, CPU) in numpy, with the
+    example's Gaussian likelihood. Returns the posterior means and standard
+    deviations of b_a and b_gravity_f over the window."""
+    from octofitter_tpu_torch.interferometry.oifits import load_oifits
+
+    row = load_oifits(oifits, use_vis2=False)
+    a = np.linspace(a_mid - EX05_IF_WINDOW, a_mid + EX05_IF_WINDOW, 601)
+    a = a[(a > 5.0) & (a < 20.0)]
+    edges = np.linspace(np.log(1e-3), np.log(1e-1), 241)
+    f = np.exp((edges[1:] + edges[:-1]) / 2)
+    orbit = ot.VisualOrbit.from_params(**{k: np.full(len(a), v) for k, v in EX05_TRUE.items()
+                                          if k != "a"}, a=a, device="cpu")
+    sol = ot.orbitsolve(orbit, np.array([row["epoch"]]))
+    ra = ot.orbits.raoff(sol).numpy()[:, 0]
+    dec = ot.orbits.decoff(sol).numpy()[:, 0]
+    mas = 1.0 / (ot.constants.RAD2AS * 1000.0)
+    arg = -2 * np.pi * (row["u"] * ra[:, None, None] + row["v"] * dec[:, None, None]) * mas
+    re = 1.0 + f[None, :, None, None] * np.cos(arg)[:, None]
+    im = f[None, :, None, None] * np.sin(arg)[:, None]
+    phi = np.degrees(np.arctan2(im, re))
+    cp = (phi[..., row["index_cps1"], :] + phi[..., row["index_cps2"], :]
+          - phi[..., row["index_cps3"], :])
+    ll = np.sum(-0.5 * (row["cps_data"] - cp) ** 2 / row["dcps"] ** 2, axis=(-2, -1))
+    p = np.exp(ll - ll.max())
+    p /= p.sum()
+    pa, pf = p.sum(axis=1), p.sum(axis=0)
+    out = {}
+    for name, x, px in (("b_a", a, pa), ("b_gravity_f", f, pf)):
+        mean = float((px * x).sum())
+        out[name] = (mean, float(np.sqrt((px * (x - mean) ** 2).sum())))
+    return out
+
+
+def ex05_gates(ot, label, chain, oifits=None) -> tuple[bool, dict]:
+    """(passed, numbers): each free parameter's posterior mean within
+    EX05_GATES of the injected value; for the interferometry fit also
+    within EX05_IF_REF_SD standard deviations of `ex05_if_reference`."""
+    ok, out = True, {}
+    truth = EX05_TRUTH[label]
+    for name, tol in EX05_GATES[label].items():
+        v = np.asarray(chain[name]).reshape(-1)
+        mean, sd = float(v.mean()), float(v.std())
+        out[name] = {"mean": mean, "sd": sd, "truth": truth[name], "tol": tol}
+        ok &= abs(mean - truth[name]) <= tol
+    if oifits is not None:
+        ref = ex05_if_reference(ot, oifits, float(np.median(chain["b_a"])))
+        for name, (mean, sd) in ref.items():
+            out[name].update(ref_mean=mean, ref_sd=sd)
+            ok &= abs(out[name]["mean"] - mean) <= EX05_IF_REF_SD * sd
+    return bool(ok), out
+
+
+def _log_gates(label, passed, numbers) -> None:
+    for name, g in numbers.items():
+        ref = (f"; reference {g['ref_mean']:.5f} +- {g['ref_sd']:.5f} ({EX05_IF_REF_SD:g} sd)"
+               if "ref_mean" in g else "")
+        log(f"  {label}: {name} mean {g['mean']:.5f}, sd {g['sd']:.5f} (injected {g['truth']}, "
+            f"tol {g['tol']}){ref}")
+    log(f"  {label}: recovery gates {'passed' if passed else 'failed'}")
+
+
+def ex05_quadrature_profile(evaluation, dtype) -> dict:
+    """The transit's limb-darkened quadrature alone (`transit_depth` over
+    (CHAINS, 120, 64) and its gradient in b and r) at the fit's shape:
+    device operations and device time per call, and its share of the
+    device time of one evaluation of the model (`evaluation`, from
+    `evaluation_profile`)."""
+    from octofitter_tpu_torch.transits import QuadLimbDark, transit_depth
+
+    rng = np.random.default_rng(29)
+    shape = (CHAINS, EX05_TRANSIT["n"])
+    b = torch.as_tensor(rng.uniform(0.0, 1.3, shape), dtype=dtype, device="cuda")
+    b.requires_grad_(True)
+    r = torch.full((CHAINS, 1), EX05_TRANSIT["r"], dtype=dtype, device="cuda", requires_grad=True)
+    front = torch.ones(shape, dtype=torch.bool, device="cuda")
+    ld = QuadLimbDark(EX05_TRANSIT["u1"], EX05_TRANSIT["u2"])
+    fn = lambda: torch.autograd.grad(transit_depth(ld, b, r, front).sum(), (b, r))  # noqa: E731
+    dev_ms, host_ms = _time_both(fn, 10)
+    ops, busy = _device_ops_per_call(fn)
+    share = busy / evaluation["busy_us"] if busy and evaluation["busy_us"] else None
+    log(f"  transit quadrature at {shape} x 64 nodes, value and gradient: {host_ms * 1e3:.1f} us "
+        f"on the host clock, {dev_ms * 1e3:.1f} us by CUDA events, {ops} device ops and "
+        f"{busy} us of device time per call; "
+        f"{f'{share:.3f}' if share is not None else 'not measured'} of an evaluation's "
+        f"device time")
+    return {"us": host_ms * 1e3, "device_us": dev_ms * 1e3, "ops": ops, "busy_us": busy,
+            "share": share}
+
+
+def ex05_fit_phase(ot, kk, osk, label, build, arg, oifits=None) -> dict:
+    """One of examples/05's fits on the card in EX05_DTYPE: the model against
+    a float64 CPU model at 64 prior draws, then `octofit` with initialization
+    at CHAINS chains (`fit_phase`, its R-hat and launch gates), the recovery
+    gates (`ex05_gates`) and one batched evaluation's profile at CHAINS
+    prior draws; then each planted fault of EX05_FAULTS fitted the same way
+    at EX05_FAULT_CHAINS chains, which must fail the recovery gates."""
+    t0 = time.perf_counter()
+    dtype = EX05_DTYPE[label]
+    model = build(ot, arg, device="cuda", dtype=dtype)
+    ref = build(ot, arg, device="cpu", dtype=torch.float64)
+    gen = torch.Generator().manual_seed(27)
+    reference_phase(f"examples/05 {label}", model, ref,
+                    ref.link(ref.sample_priors(gen, 64)))
+    res = fit_phase(ot, kk, osk, model, f"examples/05 {label}", CHAINS, EX05_ADAPTATION,
+                    EX05_ITERATIONS, init_kwargs=EX05_INIT[label] or {},
+                    max_depth=EX05_MAX_DEPTH, orbit_fixed=label == "transit")
+    passed, res["gates"] = ex05_gates(ot, label, res["chain"], oifits)
+    _log_gates(label, passed, res["gates"])
+    if not passed:
+        raise AssertionError(f"examples/05 {label}: a posterior mean missed its gate")
+    theta = ref.link(ref.sample_priors(gen, CHAINS)).to("cuda", dtype)
+    res["profile"] = evaluation_profile(f"examples/05 {label}", model, theta)
+    if label == "transit":
+        res["quadrature"] = ex05_quadrature_profile(res["profile"], dtype)
+    res["faults"] = {}
+    for fault in EX05_FAULTS[label]:
+        with ex05_planted_fault(fault):
+            faulty = build(ot, arg, device="cuda", dtype=dtype)
+            fres = fit_phase(ot, kk, osk, faulty, f"examples/05 {label}, planted fault {fault}",
+                             EX05_FAULT_CHAINS, EX05_FAULT_ADAPTATION, EX05_FAULT_ITERATIONS,
+                             init_kwargs=EX05_INIT[label] or {}, rhat_gate=False,
+                             max_depth=EX05_FAULT_MAX_DEPTH)
+            passed, numbers = ex05_gates(ot, label, fres["chain"], oifits)
+        _log_gates(f"{label}, planted fault {fault}", passed, numbers)
+        if passed:
+            raise AssertionError(f"examples/05 {label}: the planted fault {fault} passed the gates")
+        res["faults"][fault] = {"gates": numbers, "launches": fres["launches"]}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"examples/05 {label} phase: {res['seconds']:.2f} s")
+    return res
+
+
+def ex05_evaluation_phase(ot, kk, osk) -> dict:
+    """One float64 value-and-gradient at CHAINS prior draws of the
+    likelihood-map model and of the GRAVITY model on the card, held to the
+    CPU (`_card_evaluation`). Gates: finite gradients everywhere, zero ones
+    on -inf rows; GRAVITY has rows whose covariance is not positive
+    definite (-inf), the map rows off it (the fill value); the fused pair
+    once each way, no Kepler launch."""
+    t0 = time.perf_counter()
+    res = {}
+    for label, build, data in (("likelihood map", build_llmap_model, llmap_data(ot)),
+                               ("GRAVITY", build_gravity_model, gravity_data(ot))):
+        model = build(ot, data, device="cuda", dtype=torch.float64)
+        ref = build(ot, data, device="cpu", dtype=torch.float64)
+        theta = ref.link(ref.sample_priors(torch.Generator().manual_seed(28), CHAINS))
+        out = _card_evaluation(label, kk, osk, model, ref, theta)
+        lp, g = out["lp"], out["g"]
+        bad = ~torch.isfinite(lp)
+        filled = int((lp <= -1e4 + 0.5).sum()) if label == "likelihood map" else 0
+        log(f"  {label}: {int(bad.sum())} rows -inf, {filled} rows at the fill value; "
+            f"gradients finite everywhere: {bool(torch.isfinite(g).all())}")
+        if not bool(torch.isfinite(g).all()) or not bool((g[bad] == 0).all()):
+            raise AssertionError(f"{label}: a gradient is not finite, or a -inf row's not zero")
+        if (label == "GRAVITY") != bool(bad.any()) or (label == "likelihood map") != (filled > 0):
+            raise AssertionError(f"{label}: the gated rows are not where they should be")
+        expected = {"kepler_solve": 0, "orbit_solve_fwd": 1, "orbit_solve_bwd": 1}
+        if any(out["launches"][k] != v for k, v in expected.items()):
+            raise AssertionError(f"{label}: launches {out['launches']}, expected {expected}")
+        out["n_epochs"] = model.n_epochs
+        res[label] = out
+    res["seconds"] = time.perf_counter() - t0
+    log(f"likelihood-map and GRAVITY evaluations: {res['seconds']:.2f} s")
+    return res
+
+
+def ex05_phases(ot, kk, osk) -> dict:
+    """examples/05's three fits, then the two evaluations; the data files in
+    a temporary directory."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as directory:
+        data = ex05_data(ot, directory)
+        res["image"] = ex05_fit_phase(ot, kk, osk, "image", build_image_model, data["image"])
+        res["interferometry"] = ex05_fit_phase(ot, kk, osk, "interferometry",
+                                               build_interferometry_model, data["oifits"],
+                                               oifits=data["oifits"])
+        res["transit"] = ex05_fit_phase(ot, kk, osk, "transit", build_transit_model,
+                                        data["lightcurve"])
+    res["eval"] = ex05_evaluation_phase(ot, kk, osk)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"examples/05 phases: {res['seconds']:.2f} s")
+    return res
+
+
+EX05_FITS = ("image", "interferometry", "transit")
+
+
+def ex05_kernel_step(kk, osk, elements, kepler_mod, res) -> None:
+    """The standalone Kepler kernel held to its twin at the shapes each
+    fit's Laplace step launched it with, in the fit's dtype, and the fused
+    pair against its plain versions at the image's and interferometry's
+    (CHAINS, 1) (float32, and float64 for GRAVITY), the map's (CHAINS, 2)
+    and the transit's (CHAINS, 120) (float64); the rows go into `res`."""
+    t_step = time.perf_counter()
+    res["kepler"] = {label: kepler_path_phase(kk, kepler_mod, res[label]["kepler_shapes"],
+                                              (EX05_DTYPE[label],))
+                     for label in EX05_FITS if label in res}
+    t_mid = EX05_TRANSIT["tp"] - 0.932
+    one = (EX05_IMAGE["epoch"], EX05_IMAGE["epoch"])
+    res["pair"] = orbit_shapes_phase(osk, elements, ((f"({CHAINS}, 1)", CHAINS, 1, None, one),),
+                                     (torch.float32,))
+    res["pair64"] = orbit_shapes_phase(osk, elements, (
+        (f"({CHAINS}, 1)", CHAINS, 1, None, one),
+        (f"({CHAINS}, 2)", CHAINS, 2, None, LLMAP["epochs"]),
+        (f"({CHAINS}, {EX05_TRANSIT['n']})", CHAINS, EX05_TRANSIT["n"], None,
+         (t_mid - 0.15, t_mid + 0.15))), (torch.float64,))
+    log(f"examples/05 kernel step: {time.perf_counter() - t_step:.2f} s")
+
+
+def ex05_kernel_keys(kernels, res) -> None:
+    """The examples/05 paths' entries of the `kernels` line: every kernel's
+    launches on each (`ex05_launches`: the three fits, their planted-fault
+    fits, one evaluation of the map and of GRAVITY); the Kepler kernel at
+    each fit's Laplace shapes (`ex05_kepler`, by fit), the fused pair at
+    (CHAINS, 1) in float32 (`ex05_*`) and at (CHAINS, 1), (CHAINS, 2) and
+    (CHAINS, 120) in float64 (`ex05_f64_*`, `ex05_map_*`,
+    `ex05_transit_*`)."""
+    f32, f64 = torch.float32, torch.float64
+    for k in kernels:
+        name = k["name"]
+        fits = [label for label in EX05_FITS if label in res]
+        launches = {label: res[label]["launches"].get(name, 0) for label in fits}
+        for label in fits:
+            for fault, fres in res[label]["faults"].items():
+                launches[fault] = fres["launches"].get(name, 0)
+        for label in ("likelihood map", "GRAVITY") if "eval" in res else ():
+            launches[label] = res["eval"][label]["launches"].get(name, 0)
+        k["ex05_launches"] = launches
+        if name == "kepler_solve":
+            k["ex05_kepler"] = {}
+            for label in res["kepler"]:
+                dtype = EX05_DTYPE[label]
+                shape = max(res[label]["kepler_shapes"], key=lambda s: int(np.prod(s)))
+                row = res["kepler"][label][(shape, dtype)]
+                bnd = bound_ms(3 * dtype.itemsize * row["n"], OPS_KEPLER * row["n"], dtype)
+                k["ex05_kepler"][label] = {
+                    "shape": str(shape), "dtype": str(dtype).removeprefix("torch."),
+                    "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": bnd[0], "bound_by": bnd[1]}
+        elif name.startswith("orbit_solve"):
+            part = name.removeprefix("orbit_solve_")
+            for key, pair, t, dtype in (("ex05", "pair", 1, f32),
+                                        ("ex05_f64", "pair64", 1, f64),
+                                        ("ex05_map", "pair64", 2, f64),
+                                        ("ex05_transit", "pair64", EX05_TRANSIT["n"], f64)):
+                b = CHAINS
+                shape = f"({b}, {t})"
+                words = 8 * b + t + 14 * b * t if part == "fwd" else 8 * b + t + 15 * b * t + 8 * b
+                ops = (OPS_ORBIT_FWD if part == "fwd" else OPS_ORBIT_BWD) * b * t
+                row = res[pair][part][(shape, dtype)]
+                bnd = bound_ms(dtype.itemsize * words, ops, dtype)
+                k.update({f"{key}_shape": shape, f"{key}_dtype": str(dtype).removeprefix("torch."),
+                          f"{key}_max_abs_err": row["err"], f"{key}_ms": row["ms"],
+                          f"{key}_plain_ms": row["plain_ms"], f"{key}_bound_ms": bnd[0],
+                          f"{key}_bound_by": bnd[1]})
+
+
 # After the main path, the longest paths run in processes of their own
 # (`_Workers`), each on the same card beside this one: an evaluation keeps
 # the card busy for under a fifth of its host time (PERF.md §5), so the
@@ -3707,8 +4273,14 @@ def _job_rvgp_absolute(ot, kk, osk, state) -> dict:
     return {"rvgp": rvgp, "absolute": absolute}
 
 
+def _job_ex05(ot, kk, osk, state) -> dict:
+    """examples/05's fits and the likelihood-map and GRAVITY evaluations,
+    without their kernel checks."""
+    return ex05_phases(ot, kk, osk)
+
+
 JOBS = {"nuts_joint": _job_nuts_joint, "discrete": _job_discrete,
-        "rvgp_absolute": _job_rvgp_absolute}
+        "rvgp_absolute": _job_rvgp_absolute, "ex05": _job_ex05}
 _DROPPED = object()
 
 
@@ -3854,7 +4426,8 @@ def main() -> int:
                                      "laplace_sigma": main["model"].laplace_sigma.cpu()})
         workers.start("discrete")
         workers.start("rvgp_absolute")
-        log("started jobs nuts_joint, discrete and rvgp_absolute in processes of their own")
+        workers.start("ex05")
+        log("started jobs nuts_joint, discrete, rvgp_absolute and ex05 in processes of their own")
         cpus = min(threads, len(os.sched_getaffinity(0)))
         torch.set_num_threads(max(WORKER_THREADS, cpus - len(workers.procs) * WORKER_THREADS))
         pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
@@ -3867,12 +4440,14 @@ def main() -> int:
         elapsed("cap_phase")
         g23h = g23h_phases(ot, kk, osk, elements, kepler_mod, kernel_step=False)
         elapsed("g23h_phases")
-        done = {job: workers.join(job) for job in ("nuts_joint", "discrete", "rvgp_absolute")}
+        done = {job: workers.join(job) for job in ("nuts_joint", "discrete", "rvgp_absolute",
+                                                   "ex05")}
         elapsed("the jobs")
     torch.set_num_threads(threads)
     nuts, joint = done["nuts_joint"]["nuts"], done["nuts_joint"]["joint"]
     cal, outlier = done["discrete"]["cal"], done["discrete"]["outlier"]
     rvgp, absolute = done["rvgp_absolute"]["rvgp"], done["rvgp_absolute"]["absolute"]
+    ex05 = done["ex05"]
 
     # every kernel against its plain version at the shapes the paths gave it
     jres = kepler_path_phase(kk, kepler_mod, joint["kepler_shapes"])
@@ -3892,6 +4467,8 @@ def main() -> int:
     absolute_kernel_step(kk, osk, elements, kepler_mod, absolute)
     g23h_kernel_step(kk, osk, elements, kepler_mod, g23h)
     elapsed("absolute-astrometry and g23h kernel steps")
+    ex05_kernel_step(kk, osk, elements, kepler_mod, ex05)
+    elapsed("examples/05 kernel step")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -4113,6 +4690,7 @@ def main() -> int:
     kernels[-1]["associative"] = rvgp["extra"]["assoc"]
     absolute_kernel_keys(kernels, absolute)
     g23h_kernel_keys(kernels, g23h)
+    ex05_kernel_keys(kernels, ex05)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,11 @@ likelihoods (`HipparcosIADObs`, the HGCA linear-fit `HGCAObs`,
 observable and stability priors (`ObsPriorAstromONeil2019`,
 `LimitClosestApproachAUPrior`, `NonCrossingPrior`, `HillStabilityPrior`,
 `PlanetOrderPrior`), `PhotometryObs` with the Sonora and BHAC15
-interpolators (`atmosphere`), the RV
+interpolators (`atmosphere`), direct images and likelihood maps
+(`ImageObs`, `LogLikelihoodMapObs`; `images/`), interferometry
+(`InterferometryObs` with its OIFITS loader, `GRAVITYWideKPObs`;
+`interferometry/`), transit light curves (`LightCurveObs`; `transits/`),
+the RV
 likelihoods with Gaussian-process noise (dense kernels and celerite
 terms) and the RV archive loaders, the continuous priors,
 `LogDensityModel`, the parameterizations with `ofti_linear_solve`, the
@@ -89,6 +93,19 @@ from .astrom import (
 )
 from . import atmosphere
 from .atmosphere import sonora_photometry_interpolator, sonora_cooling_interpolator
+from . import images
+from .images import ImageObs, ImageLikelihood, LogLikelihoodMapObs, LogLikelihoodMap
+from . import interferometry
+from .interferometry import (
+    InterferometryObs,
+    InterferometryLikelihood,
+    AbstractInterferometryObs,
+    AbstractInterferometryLikelihood,
+    GRAVITYWideKPObs,
+    GRAVITYWideKPLikelihood,
+)
+from . import transits
+from .transits import LightCurveObs, LightCurveLikelihood
 from . import rv
 from .rv import (
     StarAbsoluteRVObs,

@@ -38,8 +38,9 @@ import chip_smoke
 # The names of APPENDIX_A that the port exports (27 before the discrete
 # slice, which added the next 8; the RV-GP slice added the RV archive
 # loaders and radvel_posterior, the next 7; the absolute-astrometry slice
-# the next 6; the G23H slice the last 11: G23H, the observable and
-# stability priors, photometry and the Sonora interpolators).
+# the next 6; the G23H slice the next 11: G23H, the observable and
+# stability priors, photometry and the Sonora interpolators; the images,
+# interferometry and transits slice the last 12).
 PORTED = [
     "Planet", "System", "UniformCircular", "Sine", "KDEDist", "theta_at_epoch_to_tperi",
     "ofti_linear_solve", "likelihoodname", "PlanetRelAstromObs", "PlanetRelAstromLikelihood",
@@ -56,6 +57,10 @@ PORTED = [
     "G23HObs", "G23HLikelihood", "ObsPriorAstromONeil2019", "PlanetOrderPrior",
     "NonCrossingPrior", "LimitClosestApproachAUPrior", "HillStabilityPrior", "PhotometryObs",
     "PhotometryLikelihood", "sonora_photometry_interpolator", "sonora_cooling_interpolator",
+    "ImageObs", "ImageLikelihood", "LogLikelihoodMapObs", "LogLikelihoodMap",
+    "InterferometryObs", "InterferometryLikelihood", "AbstractInterferometryObs",
+    "AbstractInterferometryLikelihood", "GRAVITYWideKPObs", "GRAVITYWideKPLikelihood",
+    "LightCurveObs", "LightCurveLikelihood",
 ]
 
 
