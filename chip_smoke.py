@@ -229,17 +229,48 @@ non-zero:
    with zero gradients, the fused pair once each way;
 29. the Kepler kernel at each fit's Laplace shape in its dtype, and the
    fused pair at (4096, 1) in both precisions, (4096, 2) and (4096, 120) in
-   float64, against their plain versions.
+   float64, against their plain versions;
+30. nested sampling against an exact evidence: `examples/10`'s model (6
+   epochs at 2 mas, a and e free) in float64, held to the CPU, its logZ,
+   information and posterior moments by a 1000 x 1000 grid quadrature of
+   the CPU model's composed likelihood, then `octofit_nested` at
+   NESTED_LIVE live points (1024 walkers, NESTED_STEPS steps); gates: logZ
+   within max(0.15, 4 sqrt(H / n_live)) of the grid's, the means of a and e
+   within 0.1 posterior sd, the fused forward on every walker step and no
+   backward;
+31. `examples/04`'s eccentric and circular models (12 epochs at 1 mas) in
+   float32 by `octofit_nested` at the example's 600 live points, the
+   eccentric under two seeds; gates: finite logZ and draws, the forward on
+   every walker step, no backward; the runs' agreement, b_a against the
+   truth and the Bayes factor printed, not gated (`ex04_nested_phase`
+   says why);
+32. cross-validation on the main path's chain: `pointwise_like` over its
+   4096 x ITERATIONS draws (row sums against ln_like less the prior-only
+   terms; one forward per chunk), a float64 card-vs-CPU check at 256 draws,
+   `psis_loo` (finite elpd, p_loo and Pareto k), the k-fold and per-epoch
+   systems and `prior_only_model`;
+33. `calibrate` on `examples/10`'s model (SBC_TRIALS trials at the truth,
+   SBC_KWARGS) and `examples/11`'s --fast completeness map on a synthetic
+   70-transit scan law (COMPLETENESS_FIT); gates: ranks in [0, 1], finite
+   draws, distinct truths, one trial per cell, the 20 Mjup at 5 AU cell
+   detected, the fused pair launched;
+34. the Gaia NSS warm start from a synthetic row of the headline truth:
+   `initialize_from_nss` on the headline model (finite starting points on
+   the card), then on the headline with tp free a fit from its starting
+   points without `initialize` (R-hat < 1.05, b_a within 5 sd of 7, the
+   pair on every evaluation) and `nss_to_model_chain` (mean b_e within
+   0.01 of the row's); then the fused pair against its plain versions at
+   the shapes 30-34 launched it with.
 
-Phases 1-7 run in this process alone. Then four jobs start, each in a
+Phases 1-7 run in this process alone. Then six jobs start, each in a
 process of its own on the same card (`_Workers`): 8 and 9; 14 and 15; the
-RV-GP fit of 18 and 19-22; 27 and 28. Beside them this process runs 10-12,
-16 and 23-26. An evaluation keeps the card busy for under a fifth of its
-host time, so the processes' host dispatch overlaps; their fits' times are
-taken with the card shared. Once the jobs have ended, with the card to
-this process again: every kernel check and timing against a plain version
-that 9, 10, 12, 14, 18, 22, 26 and 29 call for, 13, 17, and the checks of
-18.
+RV-GP fit of 18 and 19-22; 27 and 28; 30, 31 and 34; 33. Beside them this
+process runs 10-12, 16, 23-26 and 32. An evaluation keeps the card busy
+for under a fifth of its host time, so the processes' host dispatch
+overlaps; their fits' times are taken with the card shared. Once the jobs
+have ended, with the card to this process again: every kernel check and
+timing against a plain version that 9, 10, 12, 14, 18, 22, 26, 29 and 34
+call for, 13, 17, and the checks of 18.
 A job that fails fails the script, with its log printed; the processes
 end with the script.
 
@@ -281,7 +312,11 @@ kernel and the fused pair their rows at (4096, 140) (`g23h_*`, float64; the
 pair also `g23h_f32_*`); every kernel carries the launches of 27-28
 (`ex05_launches`), the Kepler kernel its rows at the fits' Laplace shapes
 (`ex05_kepler`), the fused pair its rows at 29's shapes (`ex05_*`,
-`ex05_f64_*`, `ex05_map_*`, `ex05_transit_*`);
+`ex05_f64_*`, `ex05_map_*`, `ex05_transit_*`); every kernel carries the
+launches of 30-34 (`nested_launches` by run, `cv_launches`,
+`sbc_launches`, `completeness_launches`, `nss_launches`), the fused pair
+its rows at their shapes (`nested_*` float64, `nested_ex04_*`, `cv_*`,
+`cv_last_*`, `sbc_*`, `completeness_*`, `nss_*`);
 the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -745,11 +780,20 @@ def kep_orbit_phase(osk, elements, chains: int) -> None:
             raise AssertionError(f"KepOrbit backward disagrees with autograd in {dtype}")
 
 
-def build_model(ot, table, name="bench", astrom_variables=None, **model_kw):
+def build_model(ot, table, name="bench", astrom_variables=None, tp=None, **model_kw):
     """The headline model (`bench.py:build_model`) with either package's
-    API (`ot` is the package), with optional variables on its astrometry."""
+    API (`ot` is the package), with optional variables on its astrometry;
+    with `tp` (a distribution) the periastron epoch is a free parameter in
+    place of the position angle theta at MJD 57000."""
     dist = ot.distributions
     astrom = ot.PlanetRelAstromObs(table, variables=astrom_variables, name="simdata")
+    phase = dict(tp=tp) if tp is not None else dict(
+        theta=ot.UniformCircular(),
+        tp=lambda sys, pl: ot.theta_at_epoch_to_tperi(
+            pl.theta, 57000.0, M=sys.M, e=pl.e, a=pl.a,
+            i=pl.i, omega=pl.omega, Omega=pl.Omega,
+        ),
+    )
     b = ot.Planet(
         name="b",
         basis="Visual{KepOrbit}",
@@ -759,11 +803,7 @@ def build_model(ot, table, name="bench", astrom_variables=None, **model_kw):
             i=dist.Sine(),
             omega=ot.UniformCircular(),
             Omega=ot.UniformCircular(),
-            theta=ot.UniformCircular(),
-            tp=lambda sys, pl: ot.theta_at_epoch_to_tperi(
-                pl.theta, 57000.0, M=sys.M, e=pl.e, a=pl.a,
-                i=pl.i, omega=pl.omega, Omega=pl.Omega,
-            ),
+            **phase,
         ),
         observations=[astrom],
     )
@@ -781,16 +821,7 @@ def build_model(ot, table, name="bench", astrom_variables=None, **model_kw):
 def bench_table(ot, t0=55000.0, t1=59500.0, n_epochs=N_EPOCHS):
     """`bench.py:build_model(t0, t1)`'s data, simulated with the port's
     orbitsolve: the headline's by default, the partial arc's for PA_SPAN."""
-    rng = np.random.default_rng(0)
-    epochs = np.linspace(t0, t1, n_epochs)
-    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**TRUE, device="cpu"), epochs)
-    return dict(
-        epoch=epochs,
-        ra=ot.orbits.raoff(sol).numpy() + rng.standard_normal(n_epochs) * 2.0,
-        dec=ot.orbits.decoff(sol).numpy() + rng.standard_normal(n_epochs) * 2.0,
-        σ_ra=np.full(n_epochs, 2.0),
-        σ_dec=np.full(n_epochs, 2.0),
-    )
+    return astrom_table(ot, TRUE, (t0, t1), n_epochs, 2.0, 0)
 
 
 def calibration_table(ot, scale=CAL_SCALE) -> dict:
@@ -4234,6 +4265,637 @@ def ex05_kernel_keys(kernels, res) -> None:
                           f"{key}_bound_by": bnd[1]})
 
 
+# Evidence and validation (phases 30-34): nested sampling against a grid
+# quadrature (examples/10's model) and on examples/04's two models,
+# cross-validation on the main path's chain, simulation-based calibration
+# (examples/10) and a completeness map (examples/11 on a synthetic scan
+# law), and the Gaia NSS warm start of the headline fit.
+EX10_TRUE = dict(a=10.0, e=0.15, i=0.6, omega=1.0, Omega=2.0, tp=57000.0, M=1.2, plx=50.0)
+EX04_TRUE = dict(a=10.0, e=0.25, i=0.6, omega=1.0, Omega=2.0, tp=57000.0, M=1.2, plx=50.0)
+EX10_SPAN = EX04_SPAN = (56000.0, 58000.0)
+EX10_EPOCHS, EX04_EPOCHS = 6, 12
+# phase 30: the grid's points per axis (over the prior box of a and e) and
+# the nested run; phase 31: examples/04's live points and generator seeds
+GRID_POINTS = 1000
+NESTED_LIVE, NESTED_STEPS = 4096, 20
+EX04_LIVE, EX04_SEEDS = 600, (31, 32)
+# phase 32: draws of the main chain held in float64 to the CPU
+CV_SUBSET = 256
+# phase 33: examples/10's SBC and examples/11's --fast grid with their
+# samplers, cut: ChEES capped at 2^6 leapfrog steps (each SBC fit starts its
+# 8 chains at one point, so the starting metric is 1e-8 I, and at the
+# default cap of 2^10 the trajectories run to it: 3 trials took ~770 s on
+# the card) and the example's 300 + 200 and 250 + 250 halved for the
+# smoke's time (8 trials and 4 maps took 282.6 and 192.6 s at full length
+# alone on the card; `scripts/evidence_probe.py`)
+SBC_TRIALS = 8
+SBC_KWARGS = dict(sampler="chees", chains=8, adaptation=150, iterations=100, max_depth=6)
+COMPLETENESS_MASSES, COMPLETENESS_SEPARATIONS = (2.0, 20.0), (1.0, 5.0)
+# examples/11's 8 starting points are one point too, so its starting
+# metric is the identity against posterior scales from 0.01 mas/yr to AU
+COMPLETENESS_FIT = dict(chains=16, adaptation=125, iterations=125, max_depth=6)
+COMPLETENESS_SCANS = 70
+# examples/11's UEVA-single noise (completeness_trial.jl:30-33) and DR4's
+# reference epoch (J2017.5)
+COMPLETENESS_SIGMA = float(np.sqrt(3 * 0.04**2))
+COMPLETENESS_REF_EPOCH = 57936.375
+# phase 34: the fit from the NSS starting points, the free periastron
+# epoch's prior (MJD; the orbit's period is ~6,170 days) and the
+# pseudo-chain. The 64 starting points differ in M alone, so the dense
+# starting metric is their covariance plus 1e-8 jitter: at 100 or 200
+# adaptation steps the chains had not mixed (max split-R-hat 2.6 and 1.6 at
+# 512 chains on the CPU, `scripts/nss_warm_start.py`), at 300 they had
+NSS_ADAPTATION, NSS_ITERATIONS, NSS_DRAWS = 300, 100, 10_000
+NSS_TP_PRIOR = (54000.0, 60500.0)
+# the synthetic NSS row's quoted errors
+NSS_ERRORS = dict(a_thiele_innes=0.5, b_thiele_innes=0.5, f_thiele_innes=0.5,
+                  g_thiele_innes=0.5, eccentricity=0.01, parallax=0.05, period=20.0,
+                  t_periastron=20.0)
+
+
+def astrom_table(ot, true, span, n, sigma, seed) -> dict:
+    """Relative astrometry at `n` epochs evenly over `span` (MJD) of the
+    orbit `true`, with Gaussian noise `sigma` (mas) from numpy's seed
+    `seed`, simulated with the port's orbitsolve in float64 on the CPU."""
+    rng = np.random.default_rng(seed)
+    epochs = np.linspace(*span, n)
+    sol = ot.orbitsolve(ot.VisualOrbit.from_params(**true, device="cpu"), epochs)
+    return dict(epoch=epochs,
+                ra=ot.orbits.raoff(sol).numpy() + rng.standard_normal(n) * sigma,
+                dec=ot.orbits.decoff(sol).numpy() + rng.standard_normal(n) * sigma,
+                σ_ra=np.full(n, sigma), σ_dec=np.full(n, sigma))
+
+
+def ex10_table(ot) -> dict:
+    """examples/10's data: 6 epochs at 2 mas, numpy seed 0."""
+    return astrom_table(ot, EX10_TRUE, EX10_SPAN, EX10_EPOCHS, 2.0, 0)
+
+
+def build_ex10_model(pkg, table, **model_kw):
+    """examples/10's model (D = 2: a ~ U(8, 12), e ~ U(0, 0.3), the rest
+    fixed) with either package."""
+    d = pkg.distributions
+    astrom = pkg.PlanetRelAstromObs(table, name="simdata")
+    b = pkg.Planet(name="b", basis="Visual{KepOrbit}",
+                   variables=dict(a=d.Uniform(8.0, 12.0), e=d.Uniform(0.0, 0.3), i=0.6,
+                                  omega=1.0, Omega=2.0, tp=57000.0),
+                   observations=[astrom])
+    system = pkg.System(name="sbc_demo", variables=dict(M=1.2, plx=50.0), companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def ex04_table(ot) -> dict:
+    """examples/04's data: 12 epochs at 1 mas, numpy seed 1."""
+    return astrom_table(ot, EX04_TRUE, EX04_SPAN, EX04_EPOCHS, 1.0, 1)
+
+
+def build_ex04_model(pkg, table, eccentric, **model_kw):
+    """examples/04's eccentric (e ~ U(0, 0.9)) or circular (e = 1e-4) model
+    with either package."""
+    d = pkg.distributions
+    astrom = pkg.PlanetRelAstromObs(table, name="astrom")
+    b = pkg.Planet(
+        name="b", basis="Visual{KepOrbit}",
+        variables=dict(
+            a=d.Uniform(0.001, 100.0), e=d.Uniform(0.0, 0.9) if eccentric else 1e-4,
+            i=d.Sine(), omega=pkg.UniformCircular(), Omega=pkg.UniformCircular(),
+            theta=pkg.UniformCircular(),
+            tp=lambda sys, pl: pkg.theta_at_epoch_to_tperi(
+                pl.theta, 57000.0, M=sys.M, e=pl.e, a=pl.a, i=pl.i, omega=pl.omega,
+                Omega=pl.Omega)),
+        observations=[astrom])
+    system = pkg.System(
+        name="ecc" if eccentric else "circ",
+        variables=dict(M=d.truncated(d.Normal(1.2, 0.1), lower=0.1),
+                       plx=d.truncated(d.Normal(50.0, 0.02), lower=0.1)),
+        companions=[b])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def build_completeness_model(pkg, gost_csv, **model_kw):
+    """examples/11's model (D = 16) with either package, on the scan law of
+    the GOST file `gost_csv` (the example's DR4 forecast is not in the
+    repository: `synth_gost_csv` writes one)."""
+    from importlib import import_module
+
+    d = pkg.distributions
+    gost = import_module(f"{pkg.__name__}.astrom.scanlaw").load_gost_csv(gost_csv)
+    n = len(gost["epoch"])
+    table = dict(epoch=gost["epoch"], scan_pos_angle=gost["scanAngle_rad"],
+                 centroid_pos_al=np.zeros(n), centroid_pos_error_al=np.full(n, COMPLETENESS_SIGMA),
+                 parallax_factor_al=gost["parallaxFactorAlongScan"], outlier_flag=np.zeros(n))
+    ref = float(np.mean(table["epoch"]))
+    gaia = pkg.GaiaDR4AstromObs(
+        table, gaia_id=0, name="GaiaDR4",
+        variables=dict(astrometric_jitter=d.LogUniform(1e-5, 10.0),
+                       ra_offset_mas=d.Normal(0.0, 100.0), dec_offset_mas=d.Normal(0.0, 100.0),
+                       pmra=d.Uniform(-1000.0, 1000.0), pmdec=d.Uniform(-1000.0, 1000.0),
+                       plx=lambda sys, obs: sys.plx, ref_epoch=COMPLETENESS_REF_EPOCH))
+    b = pkg.Planet(
+        name="b", basis="Visual{KepOrbit}",
+        variables=dict(
+            a=d.LogUniform(0.1, 100.0), e=d.Uniform(0.0, 0.99), omega=pkg.UniformCircular(),
+            i=d.Sine(), Omega=pkg.UniformCircular(), theta=pkg.UniformCircular(),
+            tp=lambda sys, pl: pkg.theta_at_epoch_to_tperi(
+                pl.theta, ref, M=sys.M, e=pl.e, a=pl.a, i=pl.i, omega=pl.omega, Omega=pl.Omega),
+            mass=d.LogUniform(0.01, 1000.0)))
+    system = pkg.System(
+        name="DR4_completeness",
+        variables=dict(M_pri=1.0, plx=d.truncated(d.Normal(50.0, 0.5), lower=0.1),
+                       M=lambda s: s.M_pri),
+        companions=[b], observations=[gaia])
+    return pkg.LogDensityModel(system, verbosity=0, **model_kw)
+
+
+def completeness_detection(chain, theta_true) -> bool:
+    """examples/11's criterion (completeness_trial.jl:137-146): the mass
+    median within 3x of the truth and the 5th percentile above 0.1 Mjup."""
+    m = np.asarray(chain["b_mass"]).ravel()
+    med, low = np.median(m), np.quantile(m, 0.05)
+    true_mass = float(theta_true.planets["b"].mass)
+    return bool(true_mass / 3 < med < true_mass * 3 and low > 0.1)
+
+
+def nss_row(ot) -> dict:
+    """A Gaia DR3 NSS two-body row of the headline truth: Thiele-Innes
+    constants of a = 7 AU at plx 50 and its angles, its eccentricity,
+    period and periastron (a JD offset from NSS_DR3_T_PERIASTRON_REF_JD),
+    with the quoted errors NSS_ERRORS."""
+    from octofitter_tpu_torch.orbits.elements import _thiele_innes_unit
+
+    t = {k: torch.tensor(v, dtype=torch.float64) for k, v in TRUE.items()}
+    alpha = TRUE["a"] * TRUE["plx"]
+    A, B, F, G = (float(alpha * x) for x in _thiele_innes_unit(ot.orbits.VisualOrbit(**t)))
+    row = dict(source_id=1234567890123, nss_solution_type="Orbital", a_thiele_innes=A,
+               b_thiele_innes=B, f_thiele_innes=F, g_thiele_innes=G,
+               eccentricity=TRUE["e"], parallax=TRUE["plx"],
+               period=math.sqrt(TRUE["a"] ** 3 / TRUE["M"]) * ot.constants.KEPLER_YEAR_DAYS,
+               t_periastron=ot.constants.mjd2jd(TRUE["tp"]) - ot.nss.NSS_DR3_T_PERIASTRON_REF_JD)
+    row.update({f"{k}_error": v for k, v in NSS_ERRORS.items()})
+    return row
+
+
+def ex10_grid(model, n=GRID_POINTS) -> dict:
+    """examples/10's evidence and posterior by quadrature: the midpoints of
+    an n x n grid over the prior box a in (8, 12), e in (0, 0.3), where the
+    prior density is flat, through `model`'s composed path (`fused=False`)
+    in chunks. Returns logZ, the information H and the means and standard
+    deviations of b_a and b_e."""
+    a = 8.0 + 4.0 * (np.arange(n) + 0.5) / n
+    e = 0.3 * (np.arange(n) + 0.5) / n
+    ga, ge = np.meshgrid(a, e, indexing="ij")
+    cols = {"b_a": ga.ravel(), "b_e": ge.ravel()}
+    pts = np.stack([cols[name] for name in model.parameter_names], axis=-1)
+    ll = []
+    with torch.no_grad():
+        for lo in range(0, len(pts), 2**17):
+            theta = model.tensor(pts[lo: lo + 2**17])
+            ll.append(model.ln_like_nt(model.arr2nt(theta), fused=False).double().cpu())
+    ll = torch.cat(ll).numpy()
+    top = ll.max()
+    w = np.exp(ll - top)
+    logz = float(np.log(w.sum()) + top - np.log(len(ll)))
+    w /= w.sum()
+    out = {"logz": logz, "information": float(np.sum(w * ll) - logz), "points": len(ll)}
+    for name, x in cols.items():
+        mean = float(np.sum(w * x))
+        out[name] = (mean, float(np.sqrt(np.sum(w * (x - mean) ** 2))))
+    return out
+
+
+def _nested_run(ot, kk, osk, label, model, seed, n_live) -> dict:
+    """`octofit_nested` on `model` with a generator seeded `seed` on the
+    card, every launch count set to 0 just before and read just after;
+    gates: a finite logZ, the fused forward at least n_iterations x
+    NESTED_STEPS times (every walker step), the fused backward never."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _reset_launches(kk, osk)
+    t0 = time.perf_counter()
+    chain, info = ot.samplers.octofit_nested(model, generator=gen, n_live=n_live,
+                                             n_mcmc_steps=NESTED_STEPS, verbosity=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches(kk, osk)
+    n_it = info["n_iterations"]
+    acc = info["acceptance"]
+    log(f"{label}: logZ {info['logz']:.5f}, information {info['information']:.4f} nats, "
+        f"{n_it} iterations, {info['n_dead']} dead points, {seconds:.2f} s "
+        f"({seconds / n_it * 1e3:.1f} ms per iteration, "
+        f"{seconds / (n_it * NESTED_STEPS) * 1e3:.2f} ms per walker step), acceptance "
+        f"mean {float(acc.mean()):.3f} (first {acc[0]:.3f}, last {acc[-1]:.3f}); "
+        f"launches {launches}")
+    if not np.isfinite(info["logz"]):
+        raise AssertionError(f"{label}: logZ is not finite")
+    if launches["orbit_solve_fwd"] < n_it * NESTED_STEPS or launches["orbit_solve_bwd"]:
+        raise AssertionError(f"{label}: launches {launches}; expected the fused forward at least "
+                             f"{n_it * NESTED_STEPS} times and no backward")
+    return {"chain": chain, "info": info, "seconds": seconds, "launches": launches}
+
+
+def nested_evidence_phase(ot, kk, osk) -> dict:
+    """Phase 30: examples/10's model in float64, held to the CPU at 64
+    prior draws; its evidence and posterior by quadrature (`ex10_grid` on
+    the CPU model, so that neither the sampler nor a kernel enters it);
+    then `octofit_nested` at NESTED_LIVE live points on the card. Gates:
+    |logZ - logZ_grid| <= max(0.15, 4 sqrt(H / n_live)) with the run's H,
+    the means of b_a and b_e within 0.1 posterior sd of the grid's, and
+    `_nested_run`'s."""
+    t0 = time.perf_counter()
+    table = ex10_table(ot)
+    model = build_ex10_model(ot, table, device="cuda", dtype=torch.float64)
+    ref = build_ex10_model(ot, table, device="cpu", dtype=torch.float64)
+    gen = torch.Generator().manual_seed(30)
+    reference_phase("examples/10", model, ref, ref.link(ref.sample_priors(gen, 64)))
+    t_grid = time.perf_counter()
+    grid = ex10_grid(ref)
+    t_grid = time.perf_counter() - t_grid
+    log(f"examples/10 grid: {grid['points']} points in {t_grid:.2f} s: logZ {grid['logz']:.5f}, "
+        f"H {grid['information']:.4f}, b_a {grid['b_a'][0]:.5f} +- {grid['b_a'][1]:.5f}, "
+        f"b_e {grid['b_e'][0]:.5f} +- {grid['b_e'][1]:.5f}")
+    res = _nested_run(ot, kk, osk, "nested, examples/10", model, 30, NESTED_LIVE)
+    info = res["info"]
+    tol = max(0.15, 4 * math.sqrt(info["information"] / NESTED_LIVE))
+    diff = info["logz"] - grid["logz"]
+    log(f"  logZ nested {info['logz']:.5f}, grid {grid['logz']:.5f}: difference {diff:+.5f} "
+        f"(gate {tol:.4f})")
+    if not abs(diff) <= tol:
+        raise AssertionError(f"nested, examples/10: logZ {info['logz']} is {diff} from the grid's")
+    for name in ("b_a", "b_e"):
+        mean = float(res["chain"].flat(name).mean())
+        g_mean, g_sd = grid[name]
+        log(f"  {name} mean {mean:.5f}, grid {g_mean:.5f} +- {g_sd:.5f} "
+            f"({abs(mean - g_mean) / g_sd:.3f} sd; gate 0.1)")
+        if not abs(mean - g_mean) <= 0.1 * g_sd:
+            raise AssertionError(f"nested, examples/10: {name} mean {mean} is more than 0.1 sd "
+                                 f"from the grid's {g_mean}")
+    res.update(grid=grid, grid_seconds=t_grid, n_epochs=model.n_epochs,
+               seconds=time.perf_counter() - t0)
+    log(f"nested evidence phase: {res['seconds']:.2f} s")
+    return res
+
+
+def ex04_nested_phase(ot, kk, osk) -> dict:
+    """Phase 31: examples/04's eccentric and circular models in float32,
+    each held to a float64 CPU model at 64 prior draws, through
+    `octofit_nested` at the example's EX04_LIVE live points and its default
+    NESTED_STEPS walker steps: the eccentric model under both EX04_SEEDS,
+    the circular under the first. Gates: `_nested_run`'s and finite draws.
+    Reported, not gated: the eccentric runs' difference in logZ against 4
+    sqrt(2 H / n_live), b_a's median against 10 in posterior sd, and the
+    Bayes factor. At these settings the batched constrained random walk
+    (the JAX package's, ported number for number) does not find this
+    11-parameter posterior reliably in either package: its acceptance falls
+    to ~1%, runs under different seeds land tens of nats apart, each on a
+    narrow mode (b_a sd 0.02-0.4 against ChEES's 0.65-0.81;
+    `scripts/ex04_nested_spread.py`)."""
+    t0 = time.perf_counter()
+    table = ex04_table(ot)
+    res = {}
+    for eccentric in (True, False):
+        kind = "eccentric" if eccentric else "circular"
+        model = build_ex04_model(ot, table, eccentric, device="cuda", dtype=torch.float32)
+        ref = build_ex04_model(ot, table, eccentric, device="cpu", dtype=torch.float64)
+        gen = torch.Generator().manual_seed(31)
+        reference_phase(f"examples/04 {kind}", model, ref, ref.link(ref.sample_priors(gen, 64)))
+        for seed in EX04_SEEDS if eccentric else EX04_SEEDS[:1]:
+            label = f"nested, examples/04 {kind}, seed {seed}"
+            run = _nested_run(ot, kk, osk, label, model, seed, EX04_LIVE)
+            chain = run.pop("chain")
+            if not all(np.isfinite(chain[n]).all() for n in model.parameter_names):
+                raise AssertionError(f"{label}: non-finite draws")
+            v = chain["b_a"].reshape(-1)
+            run["b_a"] = (float(np.median(v)), float(v.std()))
+            run["max_loglike"] = float(chain.internals["loglike"].max())
+            log(f"  b_a median {run['b_a'][0]:.5f}, sd {run['b_a'][1]:.5f} (truth "
+                f"{EX04_TRUE['a']}: {abs(run['b_a'][0] - EX04_TRUE['a']) / run['b_a'][1]:.2f} sd; "
+                f"reported, not gated), largest log-likelihood {run['max_loglike']:.4f}")
+            res[f"{kind}_{seed}"] = run
+    e0, e1 = (res[f"eccentric_{s}"]["info"] for s in EX04_SEEDS)
+    tol = 4 * math.sqrt(2 * max(e0["information"], e1["information"]) / EX04_LIVE)
+    log(f"  eccentric runs: logZ {e0['logz']:.4f} and {e1['logz']:.4f}, difference "
+        f"{e0['logz'] - e1['logz']:+.4f} against 4 sqrt(2 H / n_live) = {tol:.4f} "
+        "(reported, not gated)")
+    circ = res[f"circular_{EX04_SEEDS[0]}"]["info"]
+    log(f"  Bayes factor logZ_ecc - logZ_circ = {e0['logz'] - circ['logz']:+.4f} "
+        "(reported, not gated)")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"examples/04 nested phase: {res['seconds']:.2f} s")
+    return res
+
+
+def cv_phase(ot, kk, osk, main) -> dict:
+    """Phase 32: cross-validation on the main path's chain. `pointwise_like`
+    on the card over all its draws (each row's sum within 1e-4 of the
+    draw's ln_like less the prior-only model's, the UnitLengthPrior terms
+    that carry no data), then at CV_SUBSET draws through a float64 model on
+    the card against the float64 CPU model (1e-9 relative); `psis_loo` on
+    the matrix (finite elpd_loo and p_loo, every Pareto k finite);
+    `generate_kfold_systems` (one system, its ln_like the prior-only
+    model's) and `generate_system_per_epoch` (N_EPOCHS systems whose data
+    terms sum to the whole model's) at 64 draws on the card in float64;
+    `prior_only_model` keeps D, and with exclude_all gives ln_like 0."""
+    from octofitter_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    model, chain, table = main["model"], main["chain"], main["table"]
+    n_draws = chain["b_a"].size
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(kk, osk)
+    t_pw = time.perf_counter()
+    LL, epochs = analysis.pointwise_like(model, chain)
+    torch.cuda.synchronize()
+    t_pw = time.perf_counter() - t_pw
+    launches = _launches(kk, osk)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunk = analysis.crossvalidation.POINTWISE_CHUNK
+    log(f"cross-validation: pointwise_like over {n_draws} draws x {LL.shape[1]} data in "
+        f"{t_pw:.2f} s (chunks of {chunk} draws, peak {peak:.3f} GiB); launches {launches}")
+    if LL.shape != (n_draws, N_EPOCHS) or not np.isfinite(LL).all():
+        raise AssertionError(f"pointwise_like: shape {LL.shape} or non-finite entries")
+    if launches["orbit_solve_fwd"] != math.ceil(n_draws / chunk) or launches["orbit_solve_bwd"]:
+        raise AssertionError(f"pointwise_like: launches {launches}; expected one forward per chunk")
+    names = model.parameter_names
+    flat = np.stack([chain[n].reshape(-1) for n in names], axis=-1)
+    blank = ot.LogDensityModel(analysis.prior_only_model(model), verbosity=0, device="cuda",
+                               dtype=model.dtype)
+    data_ll = []
+    with torch.no_grad():
+        for lo in range(0, n_draws, chunk):
+            theta = model.tensor(flat[lo: lo + chunk])
+            data_ll.append((model.ln_like_nt(model.arr2nt(theta))
+                            - blank.ln_like_nt(blank.arr2nt(theta))).double().cpu())
+    data_ll = torch.cat(data_ll).numpy()
+    err = np.abs(LL.sum(axis=1) - data_ll) / np.maximum(np.abs(data_ll), 1.0)
+    log(f"  row sums against ln_like less the prior-only terms: max relative error "
+        f"{err.max():.3e} (gate 1e-4)")
+    if not err.max() <= 1e-4:
+        raise AssertionError("pointwise_like: a row's sum disagrees with ln_like")
+
+    idx = np.random.default_rng(32).choice(n_draws, CV_SUBSET, replace=False)
+    sub = {n: chain[n].reshape(-1)[idx] for n in names}
+    m64 = build_model(ot, table, device="cuda", dtype=torch.float64)
+    r64 = build_model(ot, table, device="cpu", dtype=torch.float64)
+    LL64, _ = analysis.pointwise_like(m64, sub)
+    LLcpu, _ = analysis.pointwise_like(r64, sub)
+    err64 = float((np.abs(LL64 - LLcpu) / np.maximum(np.abs(LLcpu), 1.0)).max())
+    log(f"  float64 card vs CPU at {CV_SUBSET} draws: max relative error {err64:.3e} (gate 1e-9)")
+    if not err64 <= 1e-9:
+        raise AssertionError("pointwise_like: the float64 card disagrees with the CPU")
+
+    t_loo = time.perf_counter()
+    loo = analysis.psis_loo(LL)
+    t_loo = time.perf_counter() - t_loo
+    khat = loo["pareto_k"]
+    log(f"  psis_loo in {t_loo:.2f} s: elpd_loo {loo['elpd_loo']:.4f}, p_loo {loo['p_loo']:.4f}, "
+        f"largest Pareto k {khat.max():.4f}, k by epoch {np.round(khat, 4).tolist()}")
+    if not (np.isfinite(loo["elpd_loo"]) and np.isfinite(loo["p_loo"])
+            and len(khat) == N_EPOCHS and np.isfinite(khat).all()):
+        raise AssertionError("psis_loo: a non-finite elpd_loo, p_loo or Pareto k")
+
+    theta = r64.link(r64.sample_priors(torch.Generator().manual_seed(32), 64)).to("cuda")
+
+    def data_terms(m):
+        with torch.no_grad():
+            x = m.arr2nt(m.invlink(theta))
+            return (m.ln_like_nt(x) - blank64.ln_like_nt(x)).cpu()
+
+    blank64 = ot.LogDensityModel(analysis.prior_only_model(m64), verbosity=0, device="cuda")
+    folds = analysis.generate_kfold_systems(m64.system)
+    systems, ep = analysis.generate_system_per_epoch(m64.system)
+    fold_models = [ot.LogDensityModel(s, verbosity=0, device="cuda") for s in folds]
+    epoch_models = [ot.LogDensityModel(s, verbosity=0, device="cuda") for s in systems]
+    whole = data_terms(m64)
+    per_epoch = sum(data_terms(m) for m in epoch_models)
+    fold_err = max(float(data_terms(m).abs().max()) for m in fold_models)
+    ep_err = float(((per_epoch - whole).abs() / whole.abs().clamp(min=1.0)).max())
+    log(f"  {len(folds)} k-fold system(s), |data terms| {fold_err:.3e}; {len(systems)} "
+        f"per-epoch systems at epochs {ep.tolist()}: their data terms sum to the whole model's "
+        f"within {ep_err:.3e} relative")
+    if len(folds) != 1 or len(systems) != N_EPOCHS or fold_err > 1e-9 or ep_err > 1e-9:
+        raise AssertionError("generate_kfold_systems / generate_system_per_epoch disagree")
+    for exclude_all in (False, True):
+        m = ot.LogDensityModel(analysis.prior_only_model(m64, exclude_all), verbosity=0,
+                               device="cuda")
+        with torch.no_grad():
+            ll = m.ln_like_nt(m.arr2nt(m.invlink(theta)))
+        ll = torch.broadcast_to(m.tensor(ll), (64,))
+        log(f"  prior_only_model(exclude_all={exclude_all}): D {m.D} (whole model {m64.D}), "
+            f"max |ln_like| {float(ll.abs().max()):.3e}")
+        if m.D != m64.D or (exclude_all and bool((ll != 0).any())):
+            raise AssertionError("prior_only_model: D changed, or ln_like is not 0")
+    res = {"launches": launches, "seconds_pointwise": t_pw, "seconds_loo": t_loo,
+           "peak_gib": peak, "chunk": chunk, "n_draws": n_draws, "max_khat": float(khat.max()),
+           "elpd_loo": loo["elpd_loo"], "p_loo": loo["p_loo"], "rowsum_err": float(err.max()),
+           "f64_err": err64, "seconds": time.perf_counter() - t0}
+    log(f"cross-validation phase: {res['seconds']:.2f} s")
+    return res
+
+
+def sbc_phase(ot, kk, osk) -> dict:
+    """Phase 33, SBC: examples/10's model in float32 on the card, held to
+    the CPU at 64 prior draws, then `calibrate` with SBC_TRIALS trials at
+    truth with the example's sampler settings (SBC_KWARGS). Gates: every
+    rank in [0, 1], every fit's draws finite, the trials' truths all
+    different, the fused pair launched both ways; the KS distances are
+    printed, not gated."""
+    from octofitter_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    table = ex10_table(ot)
+    model = build_ex10_model(ot, table, device="cuda", dtype=torch.float32)
+    ref = build_ex10_model(ot, table, device="cpu", dtype=torch.float64)
+    reference_phase("examples/10, SBC", model, ref,
+                    ref.link(ref.sample_priors(torch.Generator().manual_seed(33), 64)))
+    _reset_launches(kk, osk)
+    res = analysis.calibrate(model, SBC_TRIALS, seed=33, sampler_kwargs=SBC_KWARGS,
+                             init_at_truth=True, verbosity=1)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    seconds = time.perf_counter() - t0
+    for name, r in res.items():
+        log(f"  SBC {name}: ranks {np.round(r['ranks'], 4).tolist()}, KS distance "
+            f"{r['ks_distance']:.4f} (reported, not gated), truths {np.round(r['truths'], 4).tolist()}")
+    ranks = np.concatenate([r["ranks"] for r in res.values()])
+    truths = np.stack([r["truths"] for r in res.values()], axis=-1)
+    log(f"  SBC: {SBC_TRIALS} trials in {seconds:.2f} s; launches {launches}")
+    if not ((ranks >= 0) & (ranks <= 1)).all() or len(ranks) != SBC_TRIALS * model.D:
+        raise AssertionError("SBC: a rank outside [0, 1], or a parameter without ranks")
+    if not all(r["finite"].all() for r in res.values()):
+        raise AssertionError("SBC: a fit has non-finite draws")
+    if len(np.unique(truths, axis=0)) != SBC_TRIALS:
+        raise AssertionError("SBC: two trials drew the same truth")
+    if min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) == 0:
+        raise AssertionError(f"SBC: launches {launches}; expected the fused pair")
+    return {"ranks": {k: r["ranks"] for k, r in res.items()},
+            "ks": {k: r["ks_distance"] for k, r in res.items()}, "launches": launches,
+            "seconds": seconds, "n_epochs": model.n_epochs}
+
+
+def completeness_phase(ot, kk, osk, directory) -> dict:
+    """Phase 33, completeness: examples/11's model in float32 on the card
+    on a COMPLETENESS_SCANS-transit synthetic scan law (`synth_gost_csv`),
+    held to a float64 CPU model at 64 prior draws, then `completeness_map`
+    on the example's --fast grid with its detection criterion and sampler.
+    Gates: one trial per cell, the 20 Mjup at 5 AU cell detected, the
+    fused pair launched both ways."""
+    from octofitter_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    gost = synth_gost_csv(directory, n=COMPLETENESS_SCANS, seed=33)
+    model = build_completeness_model(ot, gost, device="cuda", dtype=torch.float32)
+    ref = build_completeness_model(ot, gost, device="cpu", dtype=torch.float64)
+    reference_phase("examples/11", model, ref,
+                    ref.link(ref.sample_priors(torch.Generator().manual_seed(33), 64)))
+    _reset_launches(kk, osk)
+    cmap, results = analysis.completeness_map(
+        model, lambda m: ot.octofit(m, verbosity=0, **COMPLETENESS_FIT), completeness_detection,
+        inject=lambda m, s: {"b_mass": m, "b_a": s}, masses=COMPLETENESS_MASSES,
+        separations=COMPLETENESS_SEPARATIONS, n_trials=1, seed=0, verbosity=1)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    seconds = time.perf_counter() - t0
+    log(f"  completeness: masses {cmap.masses.tolist()} Mjup x separations "
+        f"{cmap.separations.tolist()} AU in {seconds:.2f} s; launches {launches}")
+    log(f"  completeness map:\n{cmap.completeness}\n  n_detected {cmap.n_detected.tolist()}, "
+        f"n_total {cmap.n_total.tolist()}")
+    for r in results:
+        m = np.asarray(r.chain["b_mass"]).ravel()
+        log(f"  trial mass {r.job.mass} sep {r.job.separation}: b_mass median {np.median(m):.4f}, "
+            f"q05 {np.quantile(m, 0.05):.4f}, finite draws "
+            f"{all(np.isfinite(np.asarray(r.chain[n])).all() for n in model.parameter_names)}")
+    if not (cmap.n_total == 1).all():
+        raise AssertionError(f"completeness: n_total {cmap.n_total.tolist()}")
+    i_m, i_s = COMPLETENESS_MASSES.index(20.0), COMPLETENESS_SEPARATIONS.index(5.0)
+    if cmap.n_detected[i_m, i_s] != 1:
+        raise AssertionError("completeness: the 20 Mjup companion at 5 AU was not detected")
+    if min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) == 0:
+        raise AssertionError(f"completeness: launches {launches}; expected the fused pair")
+    return {"completeness": cmap.completeness, "n_detected": cmap.n_detected,
+            "launches": launches, "seconds": seconds, "n_epochs": model.n_epochs,
+            "span": (float(model._all_epochs.min()), float(model._all_epochs.max()))}
+
+
+def nss_phase(ot, kk, osk) -> dict:
+    """Phase 34: the Gaia NSS warm start on a synthetic row of the headline
+    truth (`nss_row`), float32 on the card. `initialize_from_nss` on the
+    headline model must give finite starting points on the card; the row
+    has no position angle at MJD 57000 (theta), so each of its 64
+    candidates keeps theta's prior draw (their ln_post is printed). Then on
+    the headline model with the periastron epoch free in theta's place
+    (NSS_TP_PRIOR), where the row maps every orbital element, `octofit`
+    from its starting points without `initialize` at CHAINS chains,
+    NSS_ADAPTATION + NSS_ITERATIONS: gates max split-R-hat < 1.05 by the
+    device diagnostics, finite draws, b_a's median within 5 sd of 7 and the
+    fused pair on every gradient evaluation; then `nss_to_model_chain` at
+    NSS_DRAWS draws, whose mean b_e lies within 0.01 of the row's."""
+    t0 = time.perf_counter()
+    table = bench_table(ot)
+    row = ot.query_nss(row=nss_row(ot))
+    res = {}
+    for label, tp in (("headline", None), ("headline, tp free", NSS_TP_PRIOR)):
+        model = build_model(ot, table, device="cuda", dtype=torch.float32,
+                            tp=None if tp is None else ot.distributions.Uniform(*tp))
+        mapped = ot.initialize_from_nss(model, row)
+        pts = model.starting_points
+        with torch.no_grad():
+            lp = model.ln_post(pts).cpu().numpy()
+        log(f"NSS, {label}: mapped {mapped}; {len(pts)} starting points on {pts.device}, "
+            f"ln_post from {lp.min():.1f} to {lp.max():.1f}")
+        if not bool(torch.isfinite(pts).all()) or pts.device.type != "cuda":
+            raise AssertionError("initialize_from_nss: non-finite starting points, or off the card")
+    # the fit: the last model, the headline with tp free
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    _reset_launches(kk, osk)
+    chain = ot.octofit(model, chains=CHAINS, adaptation=NSS_ADAPTATION, iterations=NSS_ITERATIONS,
+                       generator=gen, verbosity=1)
+    torch.cuda.synchronize()
+    launches = _launches(kk, osk)
+    n_evals = chain.info["n_grad_evals"]
+    names = model.parameter_names
+    x = np.stack([chain[n] for n in names], axis=-1)
+    _, rhat = ot.ess_rhat_batch_device(x)
+    log(f"  NSS-started fit ({label}): {CHAINS} chains, {NSS_ADAPTATION} + {NSS_ITERATIONS}, "
+        f"{n_evals} gradient evaluations in {chain.info['sampling_time_s']:.2f} s; launches "
+        f"{launches}; split-R-hat {dict(zip(names, np.round(rhat, 4).tolist()))}")
+    if not bool(np.isfinite(x).all()) or not float(np.nanmax(rhat)) < 1.05:
+        raise AssertionError("NSS-started fit: non-finite draws or max split-R-hat >= 1.05")
+    if min(launches["orbit_solve_fwd"], launches["orbit_solve_bwd"]) < n_evals:
+        raise AssertionError("NSS-started fit: the fused pair missed gradient evaluations")
+    _gate_median("NSS-started fit", chain, "b_a", TRUE["a"])
+    pseudo = ot.nss_to_model_chain(row, model, n_draws=NSS_DRAWS)
+    e_mean = float(pseudo["b_e"].mean())
+    log(f"  nss_to_model_chain: {NSS_DRAWS} draws, mean b_e {e_mean:.5f} (row {row['eccentricity']}), "
+        f"mean b_a {float(pseudo['b_a'].mean()):.5f}")
+    if not abs(e_mean - row["eccentricity"]) <= 0.01:
+        raise AssertionError("nss_to_model_chain: mean b_e is more than 0.01 from the row's")
+    res.update(launches=launches, n_evals=n_evals, rhat=float(np.nanmax(rhat)),
+               sampling_s=chain.info["sampling_time_s"], seconds=time.perf_counter() - t0)
+    log(f"NSS phase: {res['seconds']:.2f} s")
+    return res
+
+
+def evidence_kernel_step(osk, elements, res) -> None:
+    """The fused pair against its plain versions, and timed, at the shapes
+    phases 30-34 launched it with: the nested walkers' (NESTED_LIVE / 4,
+    6) in float64 and (EX04_LIVE / 4, 12) in float32, `pointwise_like`'s
+    full and last chunks at 12 epochs, the SBC fits' (8, 6) and the
+    completeness fits' (16, COMPLETENESS_SCANS), float32; the NSS fit's is
+    the headline's, held in phase 4."""
+    t_step = time.perf_counter()
+    n_draws, chunk = res["cv"]["n_draws"], res["cv"]["chunk"]
+    last = n_draws - (math.ceil(n_draws / chunk) - 1) * chunk
+    span = res["validation"]["completeness"]["span"]
+    res["pair64"] = orbit_shapes_phase(osk, elements, (
+        (f"({NESTED_LIVE // 4}, {EX10_EPOCHS})", NESTED_LIVE // 4, EX10_EPOCHS, None, EX10_SPAN),),
+        (torch.float64,))
+    res["pair"] = orbit_shapes_phase(osk, elements, tuple(
+        (f"({b}, {t})", b, t, None, grid) for b, t, grid in (
+            (EX04_LIVE // 4, EX04_EPOCHS, EX04_SPAN), (chunk, N_EPOCHS, HEADLINE_GRID),
+            (last, N_EPOCHS, HEADLINE_GRID), (SBC_KWARGS["chains"], EX10_EPOCHS, EX10_SPAN),
+            (COMPLETENESS_FIT["chains"], COMPLETENESS_SCANS, span))), (torch.float32,))
+    log(f"evidence and validation kernel step: {time.perf_counter() - t_step:.2f} s")
+
+
+def evidence_kernel_keys(kernels, res, ores) -> None:
+    """Phases 30-34's entries of the `kernels` line: every kernel's launches
+    on each path (`nested_launches` by run, `cv_launches`, `sbc_launches`,
+    `completeness_launches`, `nss_launches`), and the fused pair's rows at
+    their shapes (`nested_*` float64, `nested_ex04_*`, `cv_*`,
+    `cv_last_*`, `sbc_*`, `completeness_*` and `nss_*`, float32)."""
+    f32, f64 = torch.float32, torch.float64
+    ev, val = res["evidence"], res["validation"]
+    n_draws, chunk = res["cv"]["n_draws"], res["cv"]["chunk"]
+    last = n_draws - (math.ceil(n_draws / chunk) - 1) * chunk
+    for k in kernels:
+        name = k["name"]
+        nested = {"examples/10": ev["nested"]["launches"].get(name, 0)}
+        nested.update({f"examples/04 {run}": r["launches"].get(name, 0)
+                       for run, r in ev["ex04"].items() if isinstance(r, dict)})
+        k.update({"nested_launches": nested, "cv_launches": res["cv"]["launches"].get(name, 0),
+                  "sbc_launches": val["sbc"]["launches"].get(name, 0),
+                  "completeness_launches": val["completeness"]["launches"].get(name, 0),
+                  "nss_launches": ev["nss"]["launches"].get(name, 0)})
+        if not name.startswith("orbit_solve"):
+            continue
+        part = name.removeprefix("orbit_solve_")
+        for key, pair, b, t, dtype in (
+                ("nested", "pair64", NESTED_LIVE // 4, EX10_EPOCHS, f64),
+                ("nested_ex04", "pair", EX04_LIVE // 4, EX04_EPOCHS, f32),
+                ("cv", "pair", chunk, N_EPOCHS, f32), ("cv_last", "pair", last, N_EPOCHS, f32),
+                ("sbc", "pair", SBC_KWARGS["chains"], EX10_EPOCHS, f32),
+                ("completeness", "pair", COMPLETENESS_FIT["chains"], COMPLETENESS_SCANS, f32),
+                ("nss", None, CHAINS, N_EPOCHS, f32)):
+            shape = f"({b}, {t})"
+            row = (ores if pair is None else res[pair])[part][(shape, dtype)]
+            words = 8 * b + t + 14 * b * t if part == "fwd" else 8 * b + t + 15 * b * t + 8 * b
+            ops = (OPS_ORBIT_FWD if part == "fwd" else OPS_ORBIT_BWD) * b * t
+            bnd = bound_ms(dtype.itemsize * words, ops, dtype)
+            k.update({f"{key}_shape": shape, f"{key}_dtype": str(dtype).removeprefix("torch."),
+                      f"{key}_max_abs_err": row["err"], f"{key}_ms": row["ms"],
+                      f"{key}_plain_ms": row["plain_ms"], f"{key}_bound_ms": bnd[0],
+                      f"{key}_bound_by": bnd[1]})
+
+
 # After the main path, the longest paths run in processes of their own
 # (`_Workers`), each on the same card beside this one: an evaluation keeps
 # the card busy for under a fifth of its host time (PERF.md §5), so the
@@ -4279,8 +4941,26 @@ def _job_ex05(ot, kk, osk, state) -> dict:
     return ex05_phases(ot, kk, osk)
 
 
+def _job_evidence(ot, kk, osk, state) -> dict:
+    """Nested sampling against the grid and on examples/04's models, then
+    the NSS warm start (phases 30, 31 and 34)."""
+    return {"nested": nested_evidence_phase(ot, kk, osk), "ex04": ex04_nested_phase(ot, kk, osk),
+            "nss": nss_phase(ot, kk, osk)}
+
+
+def _job_validation(ot, kk, osk, state) -> dict:
+    """SBC and the completeness map (phase 33); the scan law in a temporary
+    directory."""
+    import tempfile
+
+    sbc = sbc_phase(ot, kk, osk)
+    with tempfile.TemporaryDirectory() as directory:
+        return {"sbc": sbc, "completeness": completeness_phase(ot, kk, osk, directory)}
+
+
 JOBS = {"nuts_joint": _job_nuts_joint, "discrete": _job_discrete,
-        "rvgp_absolute": _job_rvgp_absolute, "ex05": _job_ex05}
+        "rvgp_absolute": _job_rvgp_absolute, "ex05": _job_ex05, "evidence": _job_evidence,
+        "validation": _job_validation}
 _DROPPED = object()
 
 
@@ -4427,7 +5107,10 @@ def main() -> int:
         workers.start("discrete")
         workers.start("rvgp_absolute")
         workers.start("ex05")
-        log("started jobs nuts_joint, discrete, rvgp_absolute and ex05 in processes of their own")
+        workers.start("evidence")
+        workers.start("validation")
+        log("started jobs nuts_joint, discrete, rvgp_absolute, ex05, evidence and validation in "
+            "processes of their own")
         cpus = min(threads, len(os.sched_getaffinity(0)))
         torch.set_num_threads(max(WORKER_THREADS, cpus - len(workers.procs) * WORKER_THREADS))
         pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
@@ -4440,8 +5123,9 @@ def main() -> int:
         elapsed("cap_phase")
         g23h = g23h_phases(ot, kk, osk, elements, kepler_mod, kernel_step=False)
         elapsed("g23h_phases")
-        done = {job: workers.join(job) for job in ("nuts_joint", "discrete", "rvgp_absolute",
-                                                   "ex05")}
+        cv = cv_phase(ot, kk, osk, main)
+        elapsed("cv_phase")
+        done = {job: workers.join(job) for job in JOBS}
         elapsed("the jobs")
     torch.set_num_threads(threads)
     nuts, joint = done["nuts_joint"]["nuts"], done["nuts_joint"]["joint"]
@@ -4469,6 +5153,9 @@ def main() -> int:
     elapsed("absolute-astrometry and g23h kernel steps")
     ex05_kernel_step(kk, osk, elements, kepler_mod, ex05)
     elapsed("examples/05 kernel step")
+    evidence = {"evidence": done["evidence"], "validation": done["validation"], "cv": cv}
+    evidence_kernel_step(osk, elements, evidence)
+    elapsed("evidence and validation kernel step")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -4691,6 +5378,7 @@ def main() -> int:
     absolute_kernel_keys(kernels, absolute)
     g23h_kernel_keys(kernels, g23h)
     ex05_kernel_keys(kernels, ex05)
+    evidence_kernel_keys(kernels, evidence, ores)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -20,7 +20,11 @@ terms) and the RV archive loaders, the continuous priors,
 `UserLikelihood`, `DirectLL` and `BlankLikelihood` user terms, discrete
 priors (`DiscreteUniform`, `Categorical`, `IIDVector`) marginalized or
 sampled by Gibbs-within-HMC, `octofit` with ChEES, NUTS, HMC and Gibbs,
-the parallel-tempering `octofit_pigeons`, `octofit_rejection`, `Chains`
+the parallel-tempering `octofit_pigeons`, `octofit_rejection`, batched
+nested sampling (`dysample`, `samplers.octofit_nested`), validation
+(`analysis`: pointwise likelihoods and PSIS-LOO, k-fold and per-epoch
+systems, `prior_only_model`, simulation-based calibration and
+completeness maps), the Gaia DR3 NSS warm start (`nss`), `Chains`
 and the diagnostics, `ess_rhat_batch_device` on the card among them,
 `savechain` / `loadchain`, `generate_from_params` and the package-level
 `drawfrompriors`, `sample_priors`, `initialize`, `startingpoints` and
@@ -128,7 +132,20 @@ from .rv.data_sources import (
 from . import io
 from .io import savechain, loadchain
 from .config import OctofitterConfig, get_config, set_config
-from .samplers import octofit, octofit_pigeons, octofit_rejection
+from .samplers import octofit, octofit_pigeons, octofit_rejection, dysample
+from . import analysis
+from .analysis import (
+    prior_only_model,
+    CompletenessJob,
+    CompletenessResult,
+    CompletenessMap,
+    completeness_jobs,
+    run_completeness_trial,
+    assemble_completeness,
+    completeness_map,
+)
+from . import nss
+from .nss import query_nss, nss_to_starting_point, initialize_from_nss, nss_to_model_chain
 from .chains import (
     Chains,
     ess_rhat,

@@ -61,6 +61,9 @@ PORTED = [
     "InterferometryObs", "InterferometryLikelihood", "AbstractInterferometryObs",
     "AbstractInterferometryLikelihood", "GRAVITYWideKPObs", "GRAVITYWideKPLikelihood",
     "LightCurveObs", "LightCurveLikelihood",
+    "dysample", "prior_only_model", "CompletenessJob", "CompletenessResult", "CompletenessMap",
+    "completeness_jobs", "run_completeness_trial", "assemble_completeness", "completeness_map",
+    "query_nss", "nss_to_starting_point", "initialize_from_nss", "nss_to_model_chain",
 ]
 
 

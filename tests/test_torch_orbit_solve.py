@@ -298,3 +298,28 @@ def test_kernels_match_plain_on_gpu():
                 err = (torch.remainder(err + math.pi, 2 * math.pi) - math.pi).abs()
             assert float(err.max()) <= 1e-10 * float(out_c[k].abs().max()), (n_epochs, name)
         assert bool(((g_f - g_c).abs().amax(dim=1) <= 1e-10 * g_c.abs().amax(dim=1)).all()), n_epochs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains, n_epochs", [(1024, 6), (150, 12), (65536, 12), (16, 70)])
+def test_forward_without_grad_at_evidence_shapes_on_gpu(n_chains, n_epochs):
+    """The shapes nested sampling's walkers ((1024, 6), (150, 12)),
+    `pointwise_like`'s chunks ((65536, 12)) and the completeness fits
+    ((16, 70)) give the fused forward, under `no_grad` as those paths run
+    it: one forward launch, no backward, every field within 1e-10 of its
+    largest magnitude of the composed path in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    elems = torch.as_tensor(_elements(n_chains, seed=n_chains), device="cuda")
+    epochs = np.linspace(56000.0, 58000.0, n_epochs)
+    with torch.no_grad():
+        before = (osk.launches_fwd, osk.launches_bwd)
+        sol_f = ot.orbitsolve(ot.VisualOrbit(*elems), epochs)
+        torch.cuda.synchronize()
+        assert (osk.launches_fwd - before[0], osk.launches_bwd - before[1]) == (1, 0)
+        sol_c = ot.orbitsolve(ot.VisualOrbit(*elems), epochs, fused=False)
+    for name in FIELDS:
+        err = (getattr(sol_f, name) - getattr(sol_c, name)).abs()
+        if name == "nu":  # an angle: compare modulo 2 pi
+            err = (torch.remainder(err + math.pi, 2 * math.pi) - math.pi).abs()
+        assert float(err.max()) <= 1e-10 * float(getattr(sol_c, name).abs().max()), name
