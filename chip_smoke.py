@@ -260,17 +260,43 @@ non-zero:
    points without `initialize` (R-hat < 1.05, b_a within 5 sd of 7, the
    pair on every evaluation) and `nss_to_model_chain` (mean b_e within
    0.01 of the row's); then the fused pair against its plain versions at
-   the shapes 30-34 launched it with.
+   the shapes 30-34 launched it with;
+35. the ladder and the chains across processes (`parallel/` on
+   `torch.distributed`), in the `evidence` job after 34: the partial-arc
+   model initialized once, its starting points and Laplace sigma handed to
+   every rank; (a) a one-rank NCCL mesh (`chain_mesh()` outside any process
+   group) running `octofit_pigeons` with PA_KWARGS for PARALLEL_PT_ROUNDS
+   rounds in float32, which must give `mesh=None`'s bits (draws, round
+   trips, swap rejections, log-evidence); then one world of PARALLEL_RANKS
+   spawned ranks that share the card over gloo (a file:// store; NCCL
+   refuses two ranks on one card), which runs (b) the ladder's walkers over
+   both ranks (2 x 2048 walkers x 16 rungs) and (c) its rungs over both
+   ranks (4096 x 2 x 8), each in float64 for one round (every swap
+   decision as `mesh=None`'s, draws within PARALLEL_F64_DRAW_TOL) and in
+   float32 for two (phase 10's gates that two rounds allow), (d)
+   `octofit_sharded` on the headline model at 2 x 2048 chains,
+   PARALLEL_SHARDED (max split-R-hat < 1.05, b_a within 5 sd of 7, each
+   rank's fused pair on every evaluation; the draws' distance from
+   `octofit` at 4096 chains printed) and (e) epoch sharding in float64 at
+   620 and 20,000 scans against one rank's sum and fit
+   (PARALLEL_EPOCH_TOL); each rank reports its launches per part; then (f)
+   `octofit(profile_dir=)` on the headline model for PARALLEL_PROFILE,
+   whose trace must hold the fused pair's kernel events, with the device's
+   busy share of the traced span printed. Each run prints its seconds per
+   sweep, collectives per sweep and their bytes beside `mesh=None`'s.
+   After the joins, (g) the fused pair against its plain versions at the
+   ranks' shapes (PARALLEL_SHAPES).
 
 Phases 1-7 run in this process alone. Then six jobs start, each in a
 process of its own on the same card (`_Workers`): 8 and 9; 14 and 15; the
-RV-GP fit of 18 and 19-22; 27 and 28; 30, 31 and 34; 33. Beside them this
+RV-GP fit of 18 and 19-22; 27 and 28; 30, 31, 34 and 35 (whose ranks are
+processes of their own); 33. Beside them this
 process runs 10-12, 16, 23-26 and 32. An evaluation keeps the card busy
 for under a fifth of its host time, so the processes' host dispatch
 overlaps; their fits' times are taken with the card shared. Once the jobs
 have ended, with the card to this process again: every kernel check and
-timing against a plain version that 9, 10, 12, 14, 18, 22, 26, 29 and 34
-call for, 13, 17, and the checks of 18.
+timing against a plain version that 9, 10, 12, 14, 18, 22, 26, 29, 34 and
+35 call for, 13, 17, and the checks of 18.
 A job that fails fails the script, with its log printed; the processes
 end with the script.
 
@@ -316,7 +342,10 @@ pair also `g23h_f32_*`); every kernel carries the launches of 27-28
 launches of 30-34 (`nested_launches` by run, `cv_launches`,
 `sbc_launches`, `completeness_launches`, `nss_launches`), the fused pair
 its rows at their shapes (`nested_*` float64, `nested_ex04_*`, `cv_*`,
-`cv_last_*`, `sbc_*`, `completeness_*`, `nss_*`);
+`cv_last_*`, `sbc_*`, `completeness_*`, `nss_*`); every kernel carries
+the launches of 35 by part and, for (b)-(d), by rank (`parallel_launches`),
+the fused pair its rows at a rank's half of the ladder (`parallel_*`,
+`parallel_f64_*`) and of the sharded chains (`parallel_sharded_*`);
 the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
@@ -1240,7 +1269,7 @@ def joint_path_phase(ot, kk, osk, chains, adaptation, iterations) -> dict:
     return res
 
 
-def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
+def pt_path_phase(ot, kk, osk, n_rounds, share_init=None) -> dict:
     """The partial-arc parallel-tempering fit (`bench.py:229-296`): the
     float32 GPU model checked against a float64 CPU model, `initialize`
     with the default sizes, then `octofit_pigeons` with the bench's
@@ -1255,7 +1284,9 @@ def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
     max split-R-hat and min ESS of the 2W recorded chains by the device
     diagnostics, and `partial_arc_pt_ess_per_sec` as the bench counts it:
     the min ESS over every column of the chains over the wall time from
-    the start of sampling to the end of the diagnostics."""
+    the start of sampling to the end of the diagnostics. With `share_init`
+    (a path), the initialized starting points and Laplace sigma are saved
+    there for phase 35 (`save_init`)."""
     table = bench_table(ot, *PA_SPAN)
     model = build_model(ot, table, name="bench_partial_arc", device="cuda", dtype=torch.float32)
     ref = build_model(ot, table, name="bench_partial_arc", device="cpu", dtype=torch.float64)
@@ -1268,6 +1299,8 @@ def pt_path_phase(ot, kk, osk, n_rounds) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     init_launches = _launches(kk, osk)
+    if share_init is not None:
+        save_init(model, share_init)
     kepler_shapes = dict(kk.launch_shapes)
     t_start = time.perf_counter()
     chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=n_rounds, verbosity=1,
@@ -4896,6 +4929,403 @@ def evidence_kernel_keys(kernels, res, ores) -> None:
                       f"{key}_bound_by": bnd[1]})
 
 
+# Phase 35: the ladder and the chains across processes (`parallel/`). The
+# `evidence` job initializes the partial-arc model once and runs (a), a
+# one-rank NCCL mesh (`chain_mesh()` outside any process group) against
+# mesh=None; then it spawns one world of PARALLEL_RANKS ranks that share
+# the card over gloo (NCCL refuses two ranks on one card), which runs (b)
+# the ladder's walkers over both ranks, (c) its rungs over both ranks,
+# (d) `octofit_sharded` on the headline model and (e) epoch sharding, and
+# meanwhile nothing else in the job; then the job runs the unsharded
+# references of (b)-(d) and (f), `octofit(profile_dir=)`. (g), the fused
+# pair at the ranks' shapes, runs in the main process after the joins.
+PARALLEL_RANKS = 2
+PARALLEL_PT_ROUNDS = 2          # (a) and the float32 runs of (b) and (c)
+PARALLEL_F64_ROUNDS = 1         # the float64 runs of (b) and (c)
+PARALLEL_SHARDED = dict(chains=CHAINS, adaptation=100, iterations=50)
+PARALLEL_SCANS = (DR4_EPOCHS, 20_000)
+PARALLEL_EPOCH_TOL = 1e-10      # relative, two ranks against one sum
+# (b) and (c) in float64 after one round against mesh=None: the ranks'
+# walker sums (the rung acceptance, the ChEES criterion) may differ from
+# one sum in their last bits, and the round's adaptation carries that into
+# the trajectories (measured: 0 for both on an NVIDIA H100 80GB HBM3 at
+# 700 W); every swap decision must be the same
+PARALLEL_F64_DRAW_TOL = 1e-9
+PARALLEL_PROFILE = dict(chains=CHAINS, adaptation=2, iterations=1)
+PARALLEL_RANKS_TIMEOUT_S = 600
+# the per-rank shapes of the fused pair: a rank's half of the partial-arc
+# ladder (2048 walkers x 16 rungs, or 4096 x 8) and of the sharded chains
+PARALLEL_SHAPES = ((f"({PT_CHAINS // PARALLEL_RANKS}, {N_EPOCHS})", PT_CHAINS // PARALLEL_RANKS,
+                    N_EPOCHS, None, PA_SPAN, (torch.float32, torch.float64)),
+                   (f"({CHAINS // PARALLEL_RANKS}, {N_EPOCHS})", CHAINS // PARALLEL_RANKS,
+                    N_EPOCHS, None, HEADLINE_GRID, (torch.float32,)))
+
+
+def _pt_numbers(chain, info) -> dict:
+    """What phase 35 compares and gates of one PT run."""
+    x = np.stack([chain[n] for n in chain.names], axis=-1)
+    return dict(x=x, logz=info["logevidence"], trips=info["n_round_trips"],
+                rejection=np.asarray(info["swap_rejection"]),
+                barriers=(info["global_barrier"], info["global_barrier_variational"]),
+                n_grad_evals=info["n_grad_evals"], rank_grad_evals=info["rank_grad_evals"],
+                n_sweeps=info["n_sweeps"], seconds=info["sampling_time_s"],
+                collectives=info["collectives"])
+
+
+def save_init(model, path) -> None:
+    """The model's starting points and Laplace sigma, on the host, into
+    `path` (written whole, then renamed, for a process that waits on it)."""
+    torch.save({"points": model.starting_points.cpu(), "sigma": model.laplace_sigma.cpu()},
+               path + ".part")
+    os.replace(path + ".part", path)
+
+
+def load_init(path, timeout_s=PARALLEL_RANKS_TIMEOUT_S) -> dict:
+    """What `save_init` wrote to `path`, once it is there."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no initialization was shared at {path} within {timeout_s} s")
+        time.sleep(1)
+    return torch.load(path)
+
+
+def _without_draws(run) -> dict:
+    return {k: v for k, v in run.items() if k != "x"}
+
+
+def _parallel_pt(ot, kk, osk, model, mesh, n_rounds) -> dict:
+    """`octofit_pigeons` with PA_KWARGS for `n_rounds` rounds, from a
+    generator seeded 0, the launch counts set to 0 just before and read
+    just after."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _reset_launches(kk, osk)
+    chain, info = ot.octofit_pigeons(model, generator=gen, n_rounds=n_rounds, verbosity=0,
+                                     mesh=mesh, **PA_KWARGS)
+    torch.cuda.synchronize()
+    return dict(_pt_numbers(chain, info), launches=_launches(kk, osk))
+
+
+def _pt_gates(label, res, rank=0) -> None:
+    """Phase 10's gates that two rounds allow, and the fused pair on every
+    evaluation and components pass of this rank."""
+    n_evals = res["rank_grad_evals"][rank]
+    per_sweep = res["seconds"] / res["n_sweeps"]
+    c = res["collectives"]
+    log(f"  {label}: {res['n_sweeps']} sweeps in {res['seconds']:.3f} s ({per_sweep:.4f} s each); "
+        f"evaluations {res['rank_grad_evals']} by rank; log-evidence {res['logz']:.4f}, barriers "
+        f"{res['barriers'][0]:.4f} / {res['barriers'][1]:.4f}, round trips {res['trips']}; "
+        f"collectives {c['calls']} ({c['calls'] / res['n_sweeps']:.1f} per sweep), "
+        f"{c['bytes']} bytes ({c['bytes'] / res['n_sweeps']:.0f} per sweep); launches "
+        f"{res['launches']}")
+    if not bool(np.isfinite(res["x"]).all()):
+        raise AssertionError(f"{label}: non-finite draws")
+    if not all(np.isfinite([res["logz"], *res["barriers"]])):
+        raise AssertionError(f"{label}: non-finite log-evidence or barrier")
+    if not bool(((res["rejection"] > 0) & (res["rejection"] < 1)).all()):
+        raise AssertionError(f"{label}: a swap-rejection rate outside (0, 1)")
+    lf, lb = res["launches"]["orbit_solve_fwd"], res["launches"]["orbit_solve_bwd"]
+    if lf < n_evals + res["n_sweeps"] or lb < n_evals:
+        raise AssertionError(f"{label}: the fused pair missed evaluations ({lf}, {lb} for "
+                             f"{n_evals} evaluations and {res['n_sweeps']} sweeps)")
+
+
+def _same_swaps(label, got, want) -> None:
+    """Every swap decision as mesh=None's: rejection rates and round trips."""
+    if not (np.array_equal(got["rejection"], want["rejection"]) and got["trips"] == want["trips"]):
+        raise AssertionError(f"{label}: swap decisions differ from mesh=None "
+                             f"({got['rejection']} / {want['rejection']}, trips {got['trips']} / "
+                             f"{want['trips']})")
+
+
+def _epoch_checks(ot, mesh) -> dict:
+    """(e): epoch sharding in float64 on the card over the ranks of `mesh`
+    against one sum or fit on this rank, at each of PARALLEL_SCANS."""
+    from octofitter_tpu_torch.astrom.fitting import fit_5param, prepare_A_5param
+
+    out = {}
+    f64 = dict(dtype=torch.float64, device="cuda")
+    for n in PARALLEL_SCANS:
+        tab = dr4_table(n, seed=1)
+        rng = np.random.default_rng(n)
+        A = prepare_A_5param(tab["epoch"], np.cos(tab["scan_pos_angle"]),
+                             np.sin(tab["scan_pos_angle"]), tab["parallax_factor_al"],
+                             57388.5, 57388.5)
+        b = A @ np.array([1.0, -0.5, 2.0, 0.3, -0.7]) + 0.05 * rng.standard_normal(n)
+        cphi, sphi = np.cos(tab["scan_pos_angle"]), np.sin(tab["scan_pos_angle"])
+        dalpha, ddelta = torch.as_tensor(b * cphi, **f64), torch.as_tensor(b * sphi, **f64)
+        w = torch.as_tensor(rng.integers(0, 3, n).astype(float), **f64)
+        table = dict(centroid_pos_al=torch.as_tensor(b, **f64),
+                     centroid_pos_error_al=torch.as_tensor(tab["centroid_pos_error_al"], **f64))
+        model_al = torch.as_tensor(b + 0.02 * rng.standard_normal(n), **f64)
+        jitter = 0.03
+        t0 = time.perf_counter()
+        ll = ot.parallel.sharded_gaia_dr4_ll(table, model_al, jitter, mesh)
+        fit = ot.parallel.sharded_fit_5param(torch.as_tensor(A, **f64), cphi, sphi, dalpha, ddelta,
+                                             mesh, weights=w, include_chi2=True, sigma=0.05)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        var = table["centroid_pos_error_al"] ** 2 + jitter**2
+        ll_ref = torch.sum(-0.5 * ((table["centroid_pos_al"] - model_al) ** 2 / var
+                                   + torch.log(2 * math.pi * var)))
+        ref = fit_5param(torch.as_tensor(A, **f64), cphi, sphi, dalpha, ddelta, weights=w,
+                         include_chi2=True, sigma=0.05)
+        got = torch.stack([ll, *fit["parameters"], fit["chi_squared_astro"]])
+        want = torch.stack([ll_ref, *ref["parameters"], ref["chi_squared_astro"]])
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-300)).max())
+        log(f"  (e) epoch sharding, {n} scans, float64: log-likelihood {float(ll):.10f}, fit "
+            f"parameters {np.round(torch.stack(fit['parameters']).cpu().numpy(), 8).tolist()}; "
+            f"largest relative difference from one rank's {rel:.3e} (limit {PARALLEL_EPOCH_TOL:g}); "
+            f"{seconds * 1e3:.2f} ms")
+        if not rel <= PARALLEL_EPOCH_TOL:
+            raise AssertionError(f"(e) epoch sharding at {n} scans: {rel:.3e} from one rank's")
+        out[n] = dict(rel=rel, ms=seconds * 1e3)
+    return out
+
+
+def _parallel_rank(ot, kk, osk, state) -> dict:
+    """One rank of phase 35's world, run as a job (`_worker`): joins the
+    world on the card as torchrun would place it, then (b)-(e) on this
+    rank's block."""
+    rank = state["rank"]
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(PARALLEL_RANKS))
+    t0 = time.perf_counter()
+    ot.parallel.initialize_distributed(dict(coordinator_address=state["init"],
+                                            num_processes=PARALLEL_RANKS, process_id=rank))
+    backend = torch.distributed.get_backend()
+    log(f"rank {rank}: joined a world of {PARALLEL_RANKS} over {backend} on "
+        f"{torch.cuda.current_device()} in {time.perf_counter() - t0:.2f} s")
+    walkers = ot.parallel.global_mesh(("walkers",))
+    rungs = ot.parallel.global_mesh(("walkers", "rungs"), (1, PARALLEL_RANKS))
+    table = bench_table(ot, *PA_SPAN)
+    res = {"backend": backend}
+    for dtype, rounds, tag in ((torch.float64, PARALLEL_F64_ROUNDS, "f64"),
+                               (torch.float32, PARALLEL_PT_ROUNDS, "f32")):
+        model = build_model(ot, table, name="bench_partial_arc", device="cuda", dtype=dtype)
+        model.starting_points = model.tensor(state["pa_points"])
+        model.laplace_sigma = model.tensor(state["pa_sigma"])
+        for part, mesh in (("b", walkers), ("c", rungs)):
+            res[f"{part}_{tag}"] = _parallel_pt(ot, kk, osk, model, mesh, rounds)
+            log(f"rank {rank}: ({part}) {tag} done, {res[f'{part}_{tag}']['seconds']:.2f} s")
+
+    model = build_model(ot, bench_table(ot), device="cuda", dtype=torch.float32)
+    model.starting_points = model.tensor(state["starting_points"])
+    model.laplace_sigma = model.tensor(state["laplace_sigma"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _reset_launches(kk, osk)
+    chain = ot.parallel.octofit_sharded(model, mesh=walkers, generator=gen, verbosity=0,
+                                        **PARALLEL_SHARDED)
+    torch.cuda.synchronize()
+    res["d"] = dict(x=np.stack([chain[n] for n in model.parameter_names], axis=-1),
+                    launches=_launches(kk, osk), n_evals=chain.info["n_grad_evals"],
+                    seconds=chain.info["sampling_time_s"],
+                    step_size=float(chain.info["step_size"]))
+    log(f"rank {rank}: (d) done, {res['d']['seconds']:.2f} s")
+    _reset_launches(kk, osk)
+    res["e"] = _epoch_checks(ot, walkers)
+    res["e_launches"] = _launches(kk, osk)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def _trace_share(directory) -> dict:
+    """The fused pair's kernel events and the device's busy share in the
+    one Chrome trace under `directory`: the kernels' summed durations over
+    the span from the first event to the last."""
+    files = os.listdir(directory)
+    with open(os.path.join(directory, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy = sum(e["dur"] for e in kernels)
+    counts = {k: sum(k in e["name"] for e in kernels) for k in ("orbit_fwd_kernel", "orbit_bwd_kernel")}
+    return dict(files=files, kernel_events=len(kernels), fused=counts, busy_us=busy, span_us=span,
+                share=busy / span if span else float("nan"))
+
+
+def parallel_phase(ot, kk, osk, state) -> dict:
+    """Phase 35, in the `evidence` job: (a)-(f) above. `state` holds the
+    headline's starting points and Laplace sigma, and `pa_init`, the path
+    where phase 10 shares the partial-arc model's (`save_init`)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    res = {}
+    table = bench_table(ot, *PA_SPAN)
+    pa32 = build_model(ot, table, name="bench_partial_arc", device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    init = load_init(state["pa_init"])
+    pa32.starting_points = pa32.tensor(init["points"])
+    pa32.laplace_sigma = pa32.tensor(init["sigma"])
+    log(f"phase 35: phase 10's partial-arc initialization read after {time.perf_counter() - t0:.2f} "
+        f"s; its starting points and Laplace sigma go to the ranks")
+
+    # (a) a one-rank NCCL mesh against mesh=None, bit for bit
+    mesh1 = ot.parallel.chain_mesh(axis_name="walkers")
+    log(f"(a) one-rank mesh: {mesh1}, backend {torch.distributed.get_backend()}")
+    none32 = _parallel_pt(ot, kk, osk, pa32, None, PARALLEL_PT_ROUNDS)
+    one32 = _parallel_pt(ot, kk, osk, pa32, mesh1, PARALLEL_PT_ROUNDS)
+    torch.distributed.destroy_process_group()
+    _pt_gates("(a) mesh=None, float32", none32)
+    _pt_gates("(a) one-rank NCCL mesh, float32", one32)
+    same = (np.array_equal(one32["x"], none32["x"]) and one32["trips"] == none32["trips"]
+            and np.array_equal(one32["rejection"], none32["rejection"])
+            and one32["logz"] == none32["logz"])
+    log(f"  (a) bit for bit as mesh=None (draws, round trips, swap rejections, log-evidence): {same}")
+    if not same:
+        raise AssertionError("(a) the one-rank NCCL mesh does not give mesh=None's bits")
+    res["a"] = {"none": _without_draws(none32), "one": _without_draws(one32)}
+
+    # (b)-(e) in a world of PARALLEL_RANKS ranks on this card
+    rank_state = dict(state, pa_points=pa32.starting_points.cpu(),
+                      pa_sigma=pa32.laplace_sigma.cpu())
+    with tempfile.TemporaryDirectory() as directory, _Workers(directory) as workers:
+        t0 = time.perf_counter()
+        init = f"file://{os.path.join(directory, 'store')}"
+        names = [f"rank{r}" for r in range(PARALLEL_RANKS)]
+        for r, name in enumerate(names):
+            workers.start(name, dict(rank_state, rank=r, init=init), target=_parallel_rank)
+        ranks = workers.join_all(names, PARALLEL_RANKS_TIMEOUT_S)
+        res["ranks_s"] = time.perf_counter() - t0
+    log(f"phase 35: the ranks took {res['ranks_s']:.2f} s (started, joined, {ranks[0]['backend']})")
+
+    # the unsharded references, with the card to this job again
+    pa64 = build_model(ot, table, name="bench_partial_arc", device="cuda", dtype=torch.float64)
+    pa64.starting_points = pa64.tensor(rank_state["pa_points"])
+    pa64.laplace_sigma = pa64.tensor(rank_state["pa_sigma"])
+    none64 = _parallel_pt(ot, kk, osk, pa64, None, PARALLEL_F64_ROUNDS)
+    _pt_gates("mesh=None, float64", none64)
+    for part in ("b", "c"):
+        for tag, want in (("f64", none64), ("f32", none32)):
+            label = f"({part}) {'walkers' if part == 'b' else 'rungs'} over {PARALLEL_RANKS} ranks, {tag}"
+            for r, rr in enumerate(ranks):
+                _pt_gates(f"{label}, rank {r}", rr[f"{part}_{tag}"], rank=r)
+            got = ranks[0][f"{part}_{tag}"]
+            for rr in ranks[1:]:
+                if not np.array_equal(rr[f"{part}_{tag}"]["x"], got["x"]):
+                    raise AssertionError(f"{label}: the ranks returned different chains")
+            dev = float(np.abs(got["x"] - want["x"]).max())
+            log(f"  {label}: draws within {dev:.3e} of mesh=None's; seconds per sweep "
+                f"{got['seconds'] / got['n_sweeps']:.4f} against {want['seconds'] / want['n_sweeps']:.4f}")
+            if tag == "f64":
+                _same_swaps(label, got, want)
+                if not dev <= PARALLEL_F64_DRAW_TOL:
+                    raise AssertionError(f"{label}: draws {dev:.3e} from mesh=None's")
+            res[f"{part}_{tag}"] = dict(dev=dev, none_seconds=want["seconds"],
+                                        none_sweeps=want["n_sweeps"],
+                                        ranks=[_without_draws(rr[f"{part}_{tag}"]) for rr in ranks])
+
+    dev_bc = float(np.abs(ranks[0]["b_f32"]["x"] - ranks[0]["c_f32"]["x"]).max())
+    log(f"  (b) against (c), float32, both {PT_CHAINS // PARALLEL_RANKS} rows a rank: draws within "
+        f"{dev_bc:.3e} of each other")
+    res["bc_f32_dev"] = dev_bc
+
+    # (d) octofit_sharded against octofit at the same chain count
+    model = build_model(ot, bench_table(ot), device="cuda", dtype=torch.float32)
+    model.starting_points = model.tensor(state["starting_points"])
+    model.laplace_sigma = model.tensor(state["laplace_sigma"])
+    pts = model.starting_points[torch.as_tensor(
+        np.resize(np.arange(len(model.starting_points)), PARALLEL_SHARDED["chains"]), device="cuda")]
+    _reset_launches(kk, osk)
+    ref = ot.octofit(model, generator=torch.Generator(device="cuda").manual_seed(0),
+                     starting_points=pts, verbosity=0, **PARALLEL_SHARDED)
+    torch.cuda.synchronize()
+    x_ref = np.stack([ref[n] for n in model.parameter_names], axis=-1)
+    x = ranks[0]["d"]["x"]
+    _, rhat = ot.ess_rhat_batch_device(x)
+    _, rhat_ref = ot.ess_rhat_batch_device(x_ref)
+    dev = float(np.abs(x - x_ref).max())
+    for r, rr in enumerate(ranks):
+        lf, lb = rr["d"]["launches"]["orbit_solve_fwd"], rr["d"]["launches"]["orbit_solve_bwd"]
+        log(f"  (d) octofit_sharded rank {r}: {rr['d']['n_evals']} evaluations in "
+            f"{rr['d']['seconds']:.2f} s, launches {rr['d']['launches']}")
+        if min(lf, lb) < rr["d"]["n_evals"]:
+            raise AssertionError(f"(d) rank {r}: the fused pair missed evaluations")
+        if not np.array_equal(rr["d"]["x"], x):
+            raise AssertionError("(d) the ranks returned different chains")
+    log(f"  (d) {PARALLEL_RANKS} x {PARALLEL_SHARDED['chains'] // PARALLEL_RANKS} chains, "
+        f"{PARALLEL_SHARDED['adaptation']} + {PARALLEL_SHARDED['iterations']}: max split-R-hat "
+        f"{float(np.nanmax(rhat)):.5f} (octofit at {PARALLEL_SHARDED['chains']}: "
+        f"{float(np.nanmax(rhat_ref)):.5f}, {ref.info['sampling_time_s']:.2f} s, "
+        f"{ref.info['n_grad_evals']} evaluations); draws within {dev:.3e} of octofit's; step size "
+        f"{ranks[0]['d']['step_size']:.6g} against {float(ref.info['step_size']):.6g}")
+    if not float(np.nanmax(rhat)) < 1.05 or not bool(np.isfinite(x).all()):
+        raise AssertionError("(d) octofit_sharded: max split-R-hat >= 1.05 or non-finite draws")
+    b_a = x[..., model.parameter_names.index("b_a")].reshape(-1)
+    med, sd = float(np.median(b_a)), float(b_a.std())
+    log(f"  (d) b_a median {med:.5f}, sd {sd:.5f} (true {TRUE['a']}; {abs(med - TRUE['a']) / sd:.2f} sd)")
+    if not abs(med - TRUE["a"]) <= 5 * sd:
+        raise AssertionError("(d) octofit_sharded: b_a median more than 5 sd from the truth")
+    res["d"] = dict(dev=dev, rhat=float(np.nanmax(rhat)), rhat_ref=float(np.nanmax(rhat_ref)),
+                    ranks=[_without_draws(rr["d"]) for rr in ranks],
+                    ref_seconds=ref.info["sampling_time_s"], ref_evals=ref.info["n_grad_evals"],
+                    ref_launches=_launches(kk, osk))
+    res["e"] = [rr["e"] for rr in ranks]
+
+    # (f) octofit(profile_dir=): the trace holds the fused pair's kernels
+    with tempfile.TemporaryDirectory() as directory:
+        _reset_launches(kk, osk)
+        prof = ot.octofit(model, generator=torch.Generator(device="cuda").manual_seed(0),
+                          starting_points=pts, verbosity=0, profile_dir=directory,
+                          **PARALLEL_PROFILE)
+        launches = _launches(kk, osk)
+        share = _trace_share(directory)
+    log(f"  (f) octofit(profile_dir=) at {PARALLEL_PROFILE}: {prof.info['n_grad_evals']} evaluations, "
+        f"trace {share['files']}: {share['kernel_events']} kernel events, the fused pair "
+        f"{share['fused']} (launched {launches['orbit_solve_fwd']} / {launches['orbit_solve_bwd']}); "
+        f"device busy {share['busy_us']:.0f} of {share['span_us']:.0f} us traced "
+        f"({100 * share['share']:.2f}%)")
+    if min(share["fused"].values()) < prof.info["n_grad_evals"]:
+        raise AssertionError("(f) the trace lacks the fused pair's kernel events")
+    res["f"] = dict(share, launches=launches, n_evals=prof.info["n_grad_evals"])
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 35: {res['seconds']:.2f} s")
+    return res
+
+
+def parallel_kernel_step(osk, elements, res) -> None:
+    """(g): the fused pair against its plain versions, and timed, at the
+    ranks' shapes."""
+    t_step = time.perf_counter()
+    res["pair"] = {}
+    for label, b, t, span, grid, dtypes in PARALLEL_SHAPES:
+        out = orbit_shapes_phase(osk, elements, ((label, b, t, span, grid),), dtypes)
+        for part in ("fwd", "bwd"):
+            res["pair"].setdefault(part, {}).update(out[part])
+    log(f"parallel kernel step: {time.perf_counter() - t_step:.2f} s")
+
+
+def parallel_kernel_keys(kernels, res) -> None:
+    """Phase 35's entries of the `kernels` line: every kernel's launches by
+    part and rank (`parallel_launches`), and the fused pair's rows at the
+    ranks' shapes (`parallel_*`: a rank's half of the ladder, float32 and
+    float64; `parallel_sharded_*`: a rank's half of the chains)."""
+    for k in kernels:
+        name = k["name"]
+        launches = {"a_none": res["a"]["none"]["launches"].get(name, 0),
+                    "a_one_rank": res["a"]["one"]["launches"].get(name, 0)}
+        for part in ("b_f64", "b_f32", "c_f64", "c_f32", "d"):
+            launches[part] = [rr["launches"].get(name, 0) for rr in res[part]["ranks"]]
+        launches["f"] = res["f"]["launches"].get(name, 0)
+        k["parallel_launches"] = launches
+        if not name.startswith("orbit_solve"):
+            continue
+        part = name.removeprefix("orbit_solve_")
+        for key, (label, b, t, _, _, dtypes) in zip(("parallel", "parallel_sharded"),
+                                                   PARALLEL_SHAPES):
+            for dtype in dtypes:
+                row = res["pair"][part][(label, dtype)]
+                words = 8 * b + t + 14 * b * t if part == "fwd" else 8 * b + t + 15 * b * t + 8 * b
+                ops = (OPS_ORBIT_FWD if part == "fwd" else OPS_ORBIT_BWD) * b * t
+                bnd = bound_ms(dtype.itemsize * words, ops, dtype)
+                kd = key + ("" if dtype == torch.float32 else "_f64")
+                k.update({f"{kd}_shape": label, f"{kd}_dtype": str(dtype).removeprefix("torch."),
+                          f"{kd}_max_abs_err": row["err"], f"{kd}_ms": row["ms"],
+                          f"{kd}_plain_ms": row["plain_ms"], f"{kd}_bound_ms": bnd[0],
+                          f"{kd}_bound_by": bnd[1]})
+
+
 # After the main path, the longest paths run in processes of their own
 # (`_Workers`), each on the same card beside this one: an evaluation keeps
 # the card busy for under a fifth of its host time (PERF.md §5), so the
@@ -4942,10 +5372,12 @@ def _job_ex05(ot, kk, osk, state) -> dict:
 
 
 def _job_evidence(ot, kk, osk, state) -> dict:
-    """Nested sampling against the grid and on examples/04's models, then
-    the NSS warm start (phases 30, 31 and 34)."""
+    """Nested sampling against the grid and on examples/04's models, the
+    NSS warm start, then the ladder and the chains across processes from
+    the main path's starting points and Laplace covariance (phases 30, 31,
+    34 and 35)."""
     return {"nested": nested_evidence_phase(ot, kk, osk), "ex04": ex04_nested_phase(ot, kk, osk),
-            "nss": nss_phase(ot, kk, osk)}
+            "nss": nss_phase(ot, kk, osk), "parallel": parallel_phase(ot, kk, osk, state)}
 
 
 def _job_validation(ot, kk, osk, state) -> dict:
@@ -4972,7 +5404,7 @@ def _portable(obj):
         return {k: v for k, v in out.items() if v is not _DROPPED}
     if isinstance(obj, (list, tuple)):
         out = [_portable(v) for v in obj]
-        return _DROPPED if _DROPPED in out else type(obj)(out)
+        return _DROPPED if any(v is _DROPPED for v in out) else type(obj)(out)
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu()
     if obj is None or isinstance(obj, (bool, int, float, str, np.ndarray, np.generic,
@@ -4981,9 +5413,10 @@ def _portable(obj):
     return _DROPPED
 
 
-def _worker(job, state, log_path, out_path, repo) -> None:
-    """A job's process: runs JOBS[job], its log in `log_path` and its
-    portable result pickled into `out_path`; exits 1 on any failure."""
+def _worker(job, state, log_path, out_path, repo, target=None) -> None:
+    """A job's process: runs `target` (by default JOBS[job]), its log in
+    `log_path` and its portable result pickled into `out_path`; exits 1 on
+    any failure."""
     import pickle
     import traceback
 
@@ -4999,7 +5432,7 @@ def _worker(job, state, log_path, out_path, repo) -> None:
             from octofitter_tpu_torch.orbits.kernels import orbit_solve as osk
 
             t0 = time.perf_counter()
-            res = _portable(JOBS[job](ot, kk, osk, state))
+            res = _portable((target or JOBS[job])(ot, kk, osk, state))
             log(f"job {job}: {time.perf_counter() - t0:.2f} s in its own process")
             with open(out_path, "wb") as g:
                 pickle.dump(res, g)
@@ -5037,11 +5470,13 @@ class _Workers:
                 self._print_log(job, proc)
         return False
 
-    def start(self, job, state=None) -> None:
+    def start(self, job, state=None, target=None) -> None:
+        """Start `job`: JOBS[job], or `target` under the name `job`."""
         proc = self.ctx.Process(
             target=_worker, name=job,
             args=(job, state, str(self.directory / f"{job}.log"),
-                  str(self.directory / f"{job}.pkl"), str(Path(__file__).resolve().parent)))
+                  str(self.directory / f"{job}.pkl"), str(Path(__file__).resolve().parent),
+                  target))
         proc.start()
         self.procs[job] = proc
 
@@ -5064,6 +5499,31 @@ class _Workers:
             raise AssertionError(f"job {job} failed (exit code {proc.exitcode})")
         with open(self.directory / f"{job}.pkl", "rb") as f:
             return pickle.load(f)
+
+    def join_all(self, jobs, timeout_s) -> list:
+        """`join` each of `jobs`, which work together (a process group):
+        the first to fail, or `timeout_s` passing, stops the others, which
+        would wait for it in a collective."""
+        procs = [self.procs[job] for job in jobs]
+        deadline = time.monotonic() + timeout_s
+        while (any(p.exitcode is None for p in procs)
+               and all(p.exitcode in (None, 0) for p in procs)):
+            if time.monotonic() > deadline:
+                log(f"jobs {jobs}: not ended within {timeout_s} s")
+                break
+            procs[0].join(timeout=1)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        failed = [job for job, p in zip(jobs, procs) if p.exitcode != 0]
+        for job in failed:
+            self.joined.add(job)
+            self._print_log(job, self.procs[job])
+        if failed:
+            raise AssertionError(f"jobs {failed} failed (exit codes "
+                                 f"{[self.procs[j].exitcode for j in failed]})")
+        return [self.join(job) for job in jobs]
 
 
 def main() -> int:
@@ -5102,18 +5562,20 @@ def main() -> int:
     # the jobs beside this process's own paths; then the jobs' results
     threads = torch.get_num_threads()
     with tempfile.TemporaryDirectory() as directory, _Workers(directory) as workers:
-        workers.start("nuts_joint", {"starting_points": main["model"].starting_points.cpu(),
-                                     "laplace_sigma": main["model"].laplace_sigma.cpu()})
+        headline_state = {"starting_points": main["model"].starting_points.cpu(),
+                          "laplace_sigma": main["model"].laplace_sigma.cpu()}
+        pa_init = os.path.join(directory, "pa_init.pt")
+        workers.start("nuts_joint", headline_state)
         workers.start("discrete")
         workers.start("rvgp_absolute")
         workers.start("ex05")
-        workers.start("evidence")
+        workers.start("evidence", dict(headline_state, pa_init=pa_init))
         workers.start("validation")
         log("started jobs nuts_joint, discrete, rvgp_absolute, ex05, evidence and validation in "
             "processes of their own")
         cpus = min(threads, len(os.sched_getaffinity(0)))
         torch.set_num_threads(max(WORKER_THREADS, cpus - len(workers.procs) * WORKER_THREADS))
-        pt = pt_path_phase(ot, kk, osk, PT_ROUNDS)
+        pt = pt_path_phase(ot, kk, osk, PT_ROUNDS, share_init=pa_init)
         elapsed("pt_path_phase")
         pt_nuts = pt_nuts_phase(ot, kk, osk, pt["model"])
         elapsed("pt_nuts_phase")
@@ -5156,6 +5618,9 @@ def main() -> int:
     evidence = {"evidence": done["evidence"], "validation": done["validation"], "cv": cv}
     evidence_kernel_step(osk, elements, evidence)
     elapsed("evidence and validation kernel step")
+    parallel = done["evidence"]["parallel"]
+    parallel_kernel_step(osk, elements, parallel)
+    elapsed("parallel kernel step")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -5379,6 +5844,7 @@ def main() -> int:
     g23h_kernel_keys(kernels, g23h)
     ex05_kernel_keys(kernels, ex05)
     evidence_kernel_keys(kernels, evidence, ores)
+    parallel_kernel_keys(kernels, parallel)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -28,7 +28,10 @@ completeness maps), the Gaia DR3 NSS warm start (`nss`), `Chains`
 and the diagnostics, `ess_rhat_batch_device` on the card among them,
 `savechain` / `loadchain`, `generate_from_params` and the package-level
 `drawfrompriors`, `sample_priors`, `initialize`, `startingpoints` and
-`describe`), written in PyTorch.
+`describe`), the chains and the tempering ladder sharded across
+processes on `torch.distributed` (`parallel`: `octofit_sharded`,
+`octofit_pigeons(mesh=)`, epoch sharding) and the profiling hooks
+(`utils`, `octofit(profile_dir=)`), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -155,6 +158,8 @@ from .chains import (
     ess_tail_batch,
 )
 from . import interop
+from . import parallel
+from . import utils
 
 
 def describe(chain):

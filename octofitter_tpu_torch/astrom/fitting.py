@@ -81,6 +81,12 @@ def _lstsq_qr(A, b):
     return torch.cholesky_solve(At @ b[..., None], L)[..., 0]
 
 
+def ordered_parameters(x):
+    """The solution x (..., 5) in the returned order: (d_alpha, d_delta,
+    d_pmra, d_pmdec, d_plx)."""
+    return (x[..., 0], x[..., 1], x[..., 3], x[..., 4], x[..., 2])
+
+
 def _rhs(dalpha, ddelta, cosphi, sinphi, residuals):
     """b = dalpha cos(phi) + ddelta sin(phi) + residuals, as a tensor."""
     ref = next(x for x in (dalpha, ddelta, residuals) if isinstance(x, torch.Tensor))
@@ -117,8 +123,7 @@ def fit_5param(A, cosphi, sinphi, dalpha, ddelta, residuals=0.0, sigma=None,
         Aw = Aw * sw[..., None]
         bw = bw * sw
     x = _lstsq_qr(Aw, bw)
-    parameters = (x[..., 0], x[..., 1], x[..., 3], x[..., 4], x[..., 2])
-    out = {"parameters": parameters}
+    out = {"parameters": ordered_parameters(x)}
     if include_chi2:
         resid = bw - (Aw @ x[..., None])[..., 0]
         chi2 = torch.sum(resid * resid, dim=-1)
@@ -150,4 +155,4 @@ def fit_5param_pinv(pinv_A, cosphi, sinphi, dalpha, ddelta, residuals=0.0):
     cached-weighted-pinv fast path of `gaia-utils.jl:441-459`."""
     b = _rhs(dalpha, ddelta, cosphi, sinphi, residuals)
     x = b @ _as(pinv_A, b).T
-    return {"parameters": (x[..., 0], x[..., 1], x[..., 3], x[..., 4], x[..., 2])}
+    return {"parameters": ordered_parameters(x)}

@@ -37,6 +37,7 @@ class OctofitterConfig:
 
     # logging / tracing
     verbosity: int = 1
+    profile_dir: str = ""           # non-empty: octofit writes a torch.profiler trace here
 
     # data paths (zero-egress local mirrors)
     gost_catalog: str = ""          # OCTO_GOST_CATALOG equivalent

@@ -52,21 +52,24 @@ from .nuts import (
     welford_init,
     welford_sigma,
 )
+from .shard import as_shard
 
 
 # --------------------------------------------------------------------------
 # Welford accumulator over the chains of a batch
 # --------------------------------------------------------------------------
 
-def welford_update_batch(w: WelfordState, X):
-    """Merge a (C, D) batch into a Welford accumulator (Chan et al.)."""
-    n_b = float(X.shape[0])
-    mean_b = X.mean(dim=0)
+def welford_update_batch(w: WelfordState, X, shard=None):
+    """Merge a (C, D) batch into a Welford accumulator (Chan et al.); under
+    a `shard`, X is this rank's block and the whole batch is merged."""
+    shard = as_shard(shard, X.shape[0])
+    n_b = float(shard.axes[0].n)
+    mean_b = shard.sum(X.sum(dim=0)) / n_b
     delta = X - mean_b[None, :]
     if w.m2.ndim == 2:
-        m2_b = delta.T @ delta
+        m2_b = shard.sum(delta.T @ delta)
     else:
-        m2_b = torch.sum(delta * delta, dim=0)
+        m2_b = shard.sum(torch.sum(delta * delta, dim=0))
     n = w.n + n_b
     d = mean_b - w.mean
     mean = w.mean + d * (n_b / max(n, 1))
@@ -123,14 +126,17 @@ def _adam_step(state: AdamState, g, lr=0.025, b1=0.9, b2=0.95, eps=1e-8):
 # --------------------------------------------------------------------------
 
 def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
-                      metric, max_leapfrog):
+                      metric, max_leapfrog, shard=None):
     """Shared-trajectory HMC step for all chains at once.
 
     Returns new (Theta, lp, Grad), per-chain stats, the ChEES
     trajectory-length gradient estimate (a 0-d tensor) and the number of
-    leapfrog steps taken."""
+    leapfrog steps taken. Under a `shard` (`samplers/shard.py`) Theta is
+    this rank's block: the draws are the whole batch's and the criterion's
+    cross-chain sums are all-reduced."""
     C, D = Theta.shape
-    Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
+    shard = as_shard(shard, C)
+    Z = shard.randn(generator, (D,), Theta.dtype)
     R0 = _sample_momentum(metric, Z)
     H0 = -lp + _kinetic(metric, R0)
 
@@ -145,8 +151,7 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
     alpha = torch.clamp(torch.exp(-delta), max=1.0)
     divergent = delta > MAX_DELTA_ENERGY
 
-    accept = torch.rand((C,), generator=generator, dtype=Theta.dtype,
-                        device=generator.device) < alpha
+    accept = shard.rand(generator, (), Theta.dtype) < alpha
     acc = accept[:, None]
     Theta_new = torch.where(acc, Theta1, Theta)
     lp_new = torch.where(accept, lp1, lp)
@@ -155,9 +160,10 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
     # --- ChEES gradient estimate (Hoffman et al. 2021, eq. 8) ---------
     # Use only non-divergent proposals; weight by acceptance prob.
     w = torch.where(divergent, 0.0, alpha)
-    mean_cur = Theta.mean(dim=0)
-    wsum = torch.clamp(w.sum(), min=1e-12)
-    mean_prop = (w[:, None] * Theta1).sum(dim=0) / wsum
+    sums = shard.sum(torch.cat([Theta.sum(dim=0), (w[:, None] * Theta1).sum(dim=0), w.sum()[None]]))
+    mean_cur = sums[:D] / shard.axes[0].n
+    wsum = torch.clamp(sums[2 * D], min=1e-12)
+    mean_prop = sums[D:2 * D] / wsum
     dsq_prop = torch.sum((Theta1 - mean_prop[None, :]) ** 2, dim=1)
     dsq_cur = torch.sum((Theta - mean_cur[None, :]) ** 2, dim=1)
     V1 = _velocity(metric, R1)  # dtheta/dt at trajectory end
@@ -165,7 +171,7 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
     per_chain = (dsq_prop - dsq_cur) * proj
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
     # d t / d log T = t, and t = u*T shared across chains
-    grad_logT = (w * per_chain).sum() / wsum * u
+    grad_logT = shard.sum((w * per_chain).sum()) / wsum * u
 
     stats = NutsStats(
         acceptance_rate=alpha,
@@ -179,7 +185,7 @@ def _chees_transition(vg_batch, Theta, lp, Grad, generator, eps, traj_len, u,
 
 
 def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
-                            n_steps, u, n_rungs):
+                            n_steps, u, n_rungs, shard=None):
     """One shared-trajectory ChEES transition of every rung of a ladder.
 
     Theta (C, D) holds C = W * n_rungs chains, walker-major: row
@@ -194,12 +200,18 @@ def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
     Returns the new Theta, each row's acceptance probability (C,), and the
     ChEES gradient of log T per rung (n_rungs,), each estimated from that
     rung's W walkers. (A ladder re-evaluates its states after the swaps
-    that follow, so lp and Grad are not returned.)"""
+    that follow, so lp and Grad are not returned.)
+
+    Under a `shard` over the (walkers, rungs) grid, Theta holds this
+    rank's block (n_rungs of its rungs): the draws are the whole ladder's,
+    and the criterion's sums over a rung's walkers are all-reduced over
+    the walker axis."""
     C, D = Theta.shape
+    shard = as_shard(shard, (C // n_rungs, n_rungs))
     W = C // n_rungs
     eps_r = eps.repeat(W)[:, None]
     metric_r = chain_metric(sigma.repeat(W, 1))
-    Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
+    Z = shard.randn(generator, (D,), Theta.dtype)
     R0 = _sample_momentum(metric_r, Z)
     H0 = -lp + _kinetic(metric_r, R0)
 
@@ -212,8 +224,7 @@ def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
     delta = torch.where(torch.isnan(delta), torch.inf, delta)
     alpha = torch.clamp(torch.exp(-delta), max=1.0)
     divergent = delta > MAX_DELTA_ENERGY
-    accept = torch.rand((C,), generator=generator, dtype=Theta.dtype,
-                        device=generator.device) < alpha
+    accept = shard.rand(generator, (), Theta.dtype) < alpha
     Theta_new = torch.where(accept[:, None], Theta1, Theta)
 
     # the ChEES gradient estimate of `_chees_transition`, per rung: rungs
@@ -221,15 +232,18 @@ def _chees_transition_rungs(vg_batch, Theta, lp, Grad, generator, eps, sigma,
     w = torch.where(divergent, 0.0, alpha).view(W, n_rungs)
     Th0 = Theta.view(W, n_rungs, D)
     Th1 = Theta1.view(W, n_rungs, D)
-    wsum = torch.clamp(w.sum(dim=0), min=1e-12)
-    mean_prop = (w[..., None] * Th1).sum(dim=0) / wsum[:, None]
+    sums = shard.sum(torch.cat([Th0.sum(dim=0), (w[..., None] * Th1).sum(dim=0),
+                                w.sum(dim=0)[:, None]], dim=1))  # (n_rungs, 2 D + 1)
+    mean_cur = sums[:, :D] / shard.axes[0].n
+    wsum = torch.clamp(sums[:, 2 * D], min=1e-12)
+    mean_prop = sums[:, D:2 * D] / wsum[:, None]
     dsq_prop = torch.sum((Th1 - mean_prop) ** 2, dim=-1)
-    dsq_cur = torch.sum((Th0 - Th0.mean(dim=0)) ** 2, dim=-1)
+    dsq_cur = torch.sum((Th0 - mean_cur) ** 2, dim=-1)
     V1 = _velocity(metric_r, R1).view(W, n_rungs, D)
     proj = torch.sum((Th1 - mean_prop) * V1, dim=-1)
     per_chain = (dsq_prop - dsq_cur) * proj
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
-    grad_logT = (w * per_chain).sum(dim=0) / wsum * u
+    grad_logT = shard.sum((w * per_chain).sum(dim=0)) / wsum * u
     return Theta_new, alpha, grad_logT
 
 
@@ -251,6 +265,7 @@ def run_chees(
     adam_lr: float = 0.025,
     warmup_state: dict | None = None,
     drop_warmup: bool = True,
+    shard=None,
 ):
     """Warmup + sample with cross-chain ChEES adaptation.
 
@@ -263,10 +278,14 @@ def run_chees(
     drop_warmup: when False, the adaptation-phase draws are prepended to
     the returned draws (reference octofit `drop_warmup`).
     info["n_grad_evals"] counts batched gradient evaluations, warmup
-    included.
+    included. shard: the block of a batch sharded across processes that
+    theta0_batch holds (`samplers/shard.py`): every cross-chain quantity
+    (the acceptance, the ChEES criterion, the metric, the divergences) is
+    the whole batch's.
     """
     Theta = theta0_batch
     C, D = Theta.shape
+    shard = as_shard(shard, C)
     dtype, device = Theta.dtype, Theta.device
     dense = metric == "dense"
 
@@ -299,11 +318,11 @@ def run_chees(
         for s, u in enumerate(halton_sequence(n_warmup).tolist()):
             Theta, lp, Grad, stats, g_logT, L = _chees_transition(
                 value_and_grad, Theta, lp, Grad, generator,
-                math.exp(da.log_eps), math.exp(log_T), u, metric_cur, max_leapfrog,
+                math.exp(da.log_eps), math.exp(log_T), u, metric_cur, max_leapfrog, shard,
             )
             n_grad_evals += L
             mean_alpha, g_logT = torch.stack(
-                [stats.acceptance_rate.mean(), g_logT.to(dtype)]
+                [shard.sum(stats.acceptance_rate.sum()) / shard.axes[0].n, g_logT.to(dtype)]
             ).tolist()
             # shared dual averaging on the cross-chain mean acceptance
             da_new = da_update(da, mean_alpha, target_accept)
@@ -314,7 +333,7 @@ def run_chees(
             da = da_new
             # cross-chain Welford in slow windows
             if is_slow[s]:
-                welford = welford_update_batch(welford, Theta)
+                welford = welford_update_batch(welford, Theta, shard)
             if window_end[s]:
                 metric_cur = metric_from_sigma(welford_sigma(welford))
                 welford = welford_init(D, dtype, dense, device=device)
@@ -332,7 +351,7 @@ def run_chees(
     for u in halton_sequence(n_samples).tolist():
         Theta, lp, Grad, stats, _, L = _chees_transition(
             value_and_grad, Theta, lp, Grad, generator, eps_f, T_f, u,
-            metric_f, max_leapfrog,
+            metric_f, max_leapfrog, shard,
         )
         n_grad_evals += L
         Thetas.append(Theta)
@@ -344,7 +363,7 @@ def run_chees(
         "step_size": eps_f,
         "trajectory_length": T_f,
         "sigma": metric_f.sigma,
-        "warmup_divergences": int(torch.stack(wdivs).sum()) if wdivs else 0,
+        "warmup_divergences": int(shard.sum(torch.stack(wdivs).sum())) if wdivs else 0,
         "trajectory_length_trace": np.asarray(T_trace),
         "n_grad_evals": n_grad_evals,
     }

@@ -26,6 +26,7 @@ from ..distributions import categorical
 from ..model.logdensity import LogDensityModel
 from .chees import run_chees
 from .nuts import run_nuts
+from .shard import Shard
 
 
 def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
@@ -83,6 +84,23 @@ def _repackage(model: LogDensityModel, samples_t, lps, stats, info, t_sampling,
     return Chains(data, internals, chain_info)
 
 
+def _gather_chains(shard, samples, lps, stats, info, t_sampling, per_chain_tuning):
+    """Every rank's chains, in rank order, on every rank: the draws, the
+    statistics and, where each chain adapts its own (NUTS, HMC), the step
+    sizes, metrics and warmup divergences all-gathered along the chain
+    axis; the sampling time is the slowest rank's."""
+    info = dict(info)
+    if per_chain_tuning:
+        info["sigma"] = shard.gather(info["sigma"], 0)
+        for key in ("step_size", "warmup_divergences"):
+            t = torch.as_tensor(info[key], device=samples.device)
+            info[key] = shard.gather(t, 0).cpu().numpy()
+    samples, lps = shard.gather(samples, 0), shard.gather(lps, 0)
+    stats = type(stats)(*(shard.gather(leaf, 0) for leaf in stats))
+    t = shard.max(torch.tensor(t_sampling, dtype=torch.float64, device=samples.device))
+    return samples, lps, stats, info, float(t)
+
+
 def _initial_sigma_from_points(points, metric):
     """Dense metric seeded from the starting-point covariance, with the
     reference's diagonal-jitter retry ladder (`sampling.jl:336-363`)."""
@@ -117,8 +135,10 @@ def octofit(
     starting_points=None,
     metric: str = "dense",
     sampler: str | None = None,
+    profile_dir: str | None = None,
     step_size: float | None = None,
     drop_warmup: bool = True,
+    mesh=None,
 ):
     """Sample the posterior with a vectorized transition (ChEES default).
 
@@ -133,9 +153,20 @@ def octofit(
     generator: a `torch.Generator` on the model's device (default: seed 0).
     starting_points: optional unconstrained (D,) or (chains, D) points;
     otherwise the model's own (running `initialize` first if it has none).
+    profile_dir: write a `torch.profiler` trace of the run there
+    (`utils.profile_trace`; default: the config's `profile_dir`, set by
+    OCTOFITTER_PROFILE_DIR, and none when that is empty).
     step_size: manual initial step size (adaptation still refines it).
     drop_warmup: when False, adaptation draws are kept at the start of
     the chain (reference `sampling.jl:129`).
+    mesh: a one-dimensional `DeviceMesh` (`parallel.chain_mesh` or
+    `parallel.global_mesh`) over which the chains are sharded:
+    `parallel.octofit_sharded` sets it. Every rank calls `octofit` with the
+    same arguments and a generator in the same state; each runs its block
+    of the chains, draws the whole batch's random numbers, and all-reduces
+    what crosses chains (ChEES's acceptance, criterion and metric, the
+    NUTS and step-size loop exits). The returned `Chains` holds every
+    chain, gathered, on every rank. Not for sampler="gibbs".
     """
     from ..config import get_config
 
@@ -147,6 +178,18 @@ def octofit(
     max_depth = cfg.max_depth if max_depth is None else max_depth
     verbosity = cfg.verbosity if verbosity is None else verbosity
     sampler = cfg.sampler if sampler is None else sampler
+    profile_dir = (cfg.profile_dir or None) if profile_dir is None else profile_dir
+    if profile_dir:
+        from ..utils import profile_trace
+
+        with profile_trace(profile_dir):
+            return octofit(
+                model, target_accept, generator=generator, chains=chains,
+                adaptation=adaptation, iterations=iterations, max_depth=max_depth,
+                verbosity=verbosity, starting_points=starting_points, metric=metric,
+                sampler=sampler, profile_dir="", step_size=step_size,
+                drop_warmup=drop_warmup, mesh=mesh,
+            )
     if model.discrete_mode == "gibbs" and sampler != "gibbs":
         sampler = "gibbs"
         if verbosity >= 1:
@@ -162,6 +205,10 @@ def octofit(
             "Gibbs-within-HMC sampler (used for large discrete "
             "domains); use the default adaptation instead"
         )
+    if sampler == "gibbs" and mesh is not None:
+        raise ValueError("mesh= shards ChEES, NUTS and HMC; the Gibbs-within-HMC sampler runs "
+                         "in one process")
+    shard = None if mesh is None else Shard.from_mesh(mesh, (chains,), ("chains",), model.device)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
 
@@ -182,6 +229,10 @@ def octofit(
             initial_sigma = model.laplace_sigma
         else:
             initial_sigma = _initial_sigma_from_points(pts.cpu().numpy(), metric)
+    # every rank holds every starting point (and so the same initial
+    # metric); each samples its own block of the chains
+    if shard is not None:
+        theta0 = theta0[shard.blocks[0]]
 
     t0 = time.perf_counter()
     if sampler == "gibbs":
@@ -212,6 +263,7 @@ def octofit(
             # 2**max_depth leapfrogs per step
             max_leapfrog=min(2**max_depth, 1024),
             drop_warmup=drop_warmup,
+            shard=shard,
             **({} if step_size is None else {"initial_step_size": step_size}),
         )
     else:
@@ -228,10 +280,14 @@ def octofit(
             sampler=sampler,
             initial_step_size=step_size,
             drop_warmup=drop_warmup,
+            shard=shard,
         )
     if samples.is_cuda:
         torch.cuda.synchronize(samples.device)
     t_sampling = time.perf_counter() - t0
+    if shard is not None:
+        samples, lps, stats, info, t_sampling = _gather_chains(
+            shard, samples, lps, stats, info, t_sampling, sampler != "chees")
 
     if verbosity >= 1:
         n_evals = info["n_grad_evals"]

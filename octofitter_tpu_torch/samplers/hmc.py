@@ -21,6 +21,7 @@ from .nuts import (
     _sample_momentum,
     leapfrogs_masked,
 )
+from .shard import as_shard
 
 
 def hmc_step(
@@ -33,6 +34,7 @@ def hmc_step(
     metric: Metric,
     n_leapfrog: int = 32,
     draws=None,
+    shard=None,
 ):
     """One jittered-HMC transition of every chain of a (C, D) batch.
 
@@ -43,14 +45,16 @@ def hmc_step(
     loop runs n_leapfrog steps over all chains and a chain stops changing
     after its own L. The random numbers come from `generator` unless
     `draws` = (z (C, D) standard normals, L (C,), u (C,) accept uniforms)
-    gives them. Returns (Theta, lp, Grad, NutsStats) with (C,) statistics."""
+    gives them; under a `shard` (`samplers/shard.py`) they are the whole
+    sharded batch's. Returns (Theta, lp, Grad, NutsStats) with (C,)
+    statistics."""
     C, D = Theta.shape
     eps = _per_chain(eps, C, Theta)
+    shard = as_shard(shard, C)
     if draws is None:
-        dev = generator.device
-        Z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=dev)
+        Z = shard.randn(generator, (D,), Theta.dtype)
         # jitter the trajectory length uniformly in [1, n_leapfrog]
-        L = torch.randint(1, n_leapfrog + 1, (C,), generator=generator, device=dev)
+        L = shard.randint(generator, 1, n_leapfrog + 1)
     else:
         Z, L, u = draws
     R0 = _sample_momentum(metric, Z)
@@ -63,7 +67,7 @@ def hmc_step(
     delta = torch.where(torch.isnan(delta), torch.inf, delta)
     alpha = torch.clamp(torch.exp(-delta), max=1.0)
     if draws is None:
-        u = torch.rand((C,), generator=generator, dtype=Theta.dtype, device=dev)
+        u = shard.rand(generator, (), Theta.dtype)
     accept = u < alpha
     divergent = delta > MAX_DELTA_ENERGY
 

@@ -35,6 +35,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .shard import as_shard
+
 MAX_DELTA_ENERGY = 1000.0  # divergence threshold, as Stan/AdvancedHMC
 
 
@@ -164,7 +166,7 @@ class NutsDraws(NamedTuple):
 
 
 def _build_subtree(value_and_grad, Theta0, R0, Grad0, depth, seps, metric, H0, building,
-                   leaf_u, max_depth):
+                   leaf_u, max_depth, shard):
     """Build a subtree of 2**depth leapfrog steps from (Theta0, R0) on the
     chains where `building` (C,) holds; the others' entries are left as
     they start.
@@ -177,7 +179,8 @@ def _build_subtree(value_and_grad, Theta0, R0, Grad0, depth, seps, metric, H0, b
     tensors regardless of the subtree's size. A chain stops building at
     its first U-turn or divergence and stays stopped, so a checkpoint slot
     that a stopped chain overwrites is never read for it again: the
-    checkpoints are written for all chains."""
+    checkpoints are written for all chains. The leaves stop when no chain
+    of any rank of `shard` is still building."""
     C = Theta0.shape[0]
     dtype, dev = Theta0.dtype, Theta0.device
     ckpt_v = [None] * (max_depth + 1)  # velocities M^{-1} r of the checkpointed momenta
@@ -194,7 +197,7 @@ def _build_subtree(value_and_grad, Theta0, R0, Grad0, depth, seps, metric, H0, b
     for k in range(2**depth):
         active = building & ~turning & ~divergent
         # the caller has seen building.any() before leaf 0
-        if k > 0 and not bool(active.any()):
+        if k > 0 and not shard.any(active):
             break
         n_evals += 1
         # if this leaf starts a sub-subtree, checkpoint its momentum (as its
@@ -246,13 +249,16 @@ def _build_subtree(value_and_grad, Theta0, R0, Grad0, depth, seps, metric, H0, b
 # --------------------------------------------------------------------------
 
 def nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric: Metric,
-              max_depth: int = 10, draws: NutsDraws | None = None):
+              max_depth: int = 10, draws: NutsDraws | None = None, shard=None):
     """One multinomial-NUTS transition of every chain of a (C, D) batch.
 
     value_and_grad(Theta) -> (lp (C,), Grad (C, D)). eps: a float or a
     (C,) tensor of per-chain step sizes. metric: per chain (`chain_metric`)
     or shared (`metric_from_sigma`). The random numbers come from
     `generator`, a depth's at its start, unless `draws` gives them all.
+    shard: this rank's block of a batch sharded across processes
+    (`samplers/shard.py`): the draws are the whole batch's, and the tree
+    stops growing when no chain of any rank is still building.
 
     Returns (Theta', lp', Grad', NutsStats with (C,) leaves, the number of
     batched value-and-gradient evaluations made): per depth, the deepest
@@ -260,12 +266,12 @@ def nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric: Metric,
     C, D = Theta.shape
     dtype, dev = Theta.dtype, Theta.device
     eps = _per_chain(eps, C, Theta)
+    shard = as_shard(shard, C)
 
-    def uniform(shape):
-        return torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+    def uniform(*trailing):
+        return shard.rand(generator, trailing, dtype)
 
-    Z = draws.z if draws is not None else torch.randn(
-        (C, D), generator=generator, dtype=dtype, device=generator.device)
+    Z = draws.z if draws is not None else shard.randn(generator, (D,), dtype)
     R0 = _sample_momentum(metric, Z)
     H0 = -lp + _kinetic(metric, R0)
 
@@ -281,17 +287,17 @@ def nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric: Metric,
     n_evals = 0
     for d in range(max_depth):
         building = ~turning & ~divergent
-        if d > 0 and not bool(building.any()):
+        if d > 0 and not shard.any(building):
             break
         if draws is None:
-            go_right, merge_u, leaf_u = uniform((C,)) < 0.5, uniform((C,)), uniform((C, 2**d))
+            go_right, merge_u, leaf_u = uniform() < 0.5, uniform(), uniform(2**d)
         else:
             go_right, merge_u, leaf_u = draws.go_right[d], draws.merge_u[d], draws.leaf_u[d]
         gr = go_right[:, None]
         edge = [torch.where(gr, a, b) for a, b in zip(right, left)]
         seps = torch.where(go_right, eps, -eps)[:, None]
         sub, n = _build_subtree(value_and_grad, *edge, d, seps, metric, H0, building, leaf_u,
-                                max_depth)
+                                max_depth, shard)
         n_evals += n
 
         # biased progressive sampling between the old tree and the subtree
@@ -333,15 +339,17 @@ def nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric: Metric,
 # --------------------------------------------------------------------------
 
 def find_reasonable_step_size(value_and_grad, Theta, lp, Grad, generator, metric: Metric,
-                              z=None):
+                              z=None, shard=None):
     """Per chain, double or halve eps from 0.1 until the one-leapfrog
     acceptance probability crosses 0.5 (AdvancedHMC's `find_good_stepsize`,
     `sampling.jl:376`), then step back once on the doubling side. The
     momentum's standard normals come from `generator` unless `z` (C, D)
-    gives them. Returns (eps (C,), batched evaluations made)."""
+    gives them; under a `shard` the search stops when no chain of any rank
+    is still searching. Returns (eps (C,), batched evaluations made)."""
     C, D = Theta.shape
+    shard = as_shard(shard, C)
     if z is None:
-        z = torch.randn((C, D), generator=generator, dtype=Theta.dtype, device=generator.device)
+        z = shard.randn(generator, (D,), Theta.dtype)
     R0 = _sample_momentum(metric, z)
     H0 = -lp + _kinetic(metric, R0)
 
@@ -359,7 +367,7 @@ def find_reasonable_step_size(value_and_grad, Theta, lp, Grad, generator, metric
     for i in range(61):
         crossed = torch.where(up, ~ok | (p < 0.5), ok & (p > 0.5))
         searching = searching & ~crossed & (i < 60)
-        if not bool(searching.any()):
+        if not shard.any(searching):
             break
         eps = torch.where(searching, eps * torch.where(up, 2.0, 0.5), eps)
         p, ok = accept_prob(eps)
@@ -521,6 +529,7 @@ def run_nuts(
     sampler: str = "nuts",
     initial_step_size=None,
     drop_warmup: bool = True,
+    shard=None,
 ):
     """Warmup + sample a batch of chains, every chain adapting its own
     step size and metric, all chains stepping together.
@@ -539,6 +548,9 @@ def run_nuts(
     drop_warmup: when False, warmup draws are recorded and prepended to
     the returned draws (reference octofit `drop_warmup`,
     `sampling.jl:129`).
+    shard: the block of a batch sharded across processes that
+    theta0_batch holds (`samplers/shard.py`); the chains adapt on their
+    own, so the draws and the loop exits are all that the ranks share.
 
     The warmup is Stan's window schedule (`build_warmup_schedule`): each
     chain's step size by dual averaging on its own acceptance, and in the
@@ -565,11 +577,12 @@ def run_nuts(
         n_leap = max(2 ** (max_depth // 2 + 2), 8)
 
         def transition(Theta, lp, Grad, eps, metric_c):
-            return (*hmc_step(value_and_grad, Theta, lp, Grad, generator, eps, metric_c, n_leap),
-                    n_leap)
+            return (*hmc_step(value_and_grad, Theta, lp, Grad, generator, eps, metric_c, n_leap,
+                              shard=shard), n_leap)
     elif sampler == "nuts":
         def transition(Theta, lp, Grad, eps, metric_c):
-            return nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric_c, max_depth)
+            return nuts_step(value_and_grad, Theta, lp, Grad, generator, eps, metric_c, max_depth,
+                             shard=shard)
     else:
         raise ValueError(f"unknown sampler {sampler!r}; run_nuts takes 'nuts' or 'hmc'")
 
@@ -578,7 +591,8 @@ def run_nuts(
     lp, Grad = value_and_grad(Theta)
     n_grad_evals = 1
     if initial_step_size is None:
-        eps0, n = find_reasonable_step_size(value_and_grad, Theta, lp, Grad, generator, metric_c)
+        eps0, n = find_reasonable_step_size(value_and_grad, Theta, lp, Grad, generator, metric_c,
+                                            shard=shard)
         eps0 = eps0.cpu().double().numpy()
         n_grad_evals += n
     else:

@@ -36,6 +36,7 @@ from ..chains import Chains, flatten_params_batch
 from .chees import AdamState, _adam_step, _chees_transition_rungs, halton_sequence
 from .hmc import hmc_step
 from .nuts import DualAveragingState, chain_metric, da_init, da_update, nuts_step
+from .shard import Shard
 
 # rows per batch of the final pass that turns recorded draws into Chains
 _POST_CHUNK = 2**17
@@ -141,8 +142,8 @@ def _pt_save_checkpoint(path, state: dict):
         betas_var=np.asarray(state["betas_var"]),
         eps=np.exp(state["da"].log_eps),
         sigma_diag=np.asarray(state["sigma_diag"]),
-        labels=state["labels"].cpu().numpy(),
-        direction=state["direction"].cpu().numpy(),
+        labels=np.asarray(state["labels"]),
+        direction=np.asarray(state["direction"]),
         n_round_trips=state["n_round_trips"],
         sweep_counter=state["sweep_counter"],
         next_round=state["next_round"],
@@ -221,6 +222,50 @@ def _post_columns(model, flat_t):
             np.concatenate(lps), np.concatenate(lls))
 
 
+def _slot_directions(labels, direction):
+    """The replica-indexed directions (W, NT) of a checkpoint as the
+    direction of the replica at each rung slot."""
+    return np.take_along_axis(np.asarray(direction), np.asarray(labels), axis=1)
+
+
+def _replica_directions(labels, slot_direction):
+    """The inverse of `_slot_directions`."""
+    out = np.empty_like(slot_direction)
+    np.put_along_axis(out, np.asarray(labels), slot_direction, axis=1)
+    return out
+
+
+def _with_neighbour_rungs(shard, rungs_lo, rungs_hi, *xs):
+    """Each of xs (W_l, NT_l, ...) with the left neighbour rank's last rung
+    before its rungs and the right neighbour's first rung after them, where
+    they exist (`rungs_lo` / `rungs_hi`: this rank's first rung is not the
+    ladder's first / its last is not the ladder's last): the edge rungs,
+    all-gathered over the rung axis in one float and one integer pack.
+    With the rung axis whole, xs as they are."""
+    if shard.axes[1].group is None:
+        return xs
+    i = shard.axes[1].index
+    out = list(xs)
+    for floating in (True, False):
+        sel = [j for j, x in enumerate(xs) if torch.is_floating_point(x) == floating]
+        lead = xs[sel[0]].shape[0]
+        edges = torch.cat([torch.stack([xs[j][:, 0], xs[j][:, -1]], dim=1).reshape(lead, 2, -1)
+                           for j in sel], dim=2)  # (W_l, 2, sum of trailing sizes)
+        parts = shard.stack_gather(edges, 1)      # (rung ranks, W_l, 2, ...)
+        lo = 0
+        for j in sel:
+            x = xs[j]
+            w = max(1, math.prod(x.shape[2:]))
+            cols = [x]
+            if rungs_lo:
+                cols.insert(0, parts[i - 1, :, 1, lo:lo + w].reshape((lead, 1) + x.shape[2:]))
+            if rungs_hi:
+                cols.append(parts[i + 1, :, 0, lo:lo + w].reshape((lead, 1) + x.shape[2:]))
+            out[j] = torch.cat(cols, dim=1)
+            lo += w
+    return tuple(out)
+
+
 def octofit_pigeons(
     model,
     *,
@@ -265,26 +310,39 @@ def octofit_pigeons(
     sharing one Halton-jittered trajectory whose length each rung adapts
     by Adam) or "hmc" (jittered-trajectory HMC with up to
     explorer_n_leapfrog steps). Each rung has its own step size and
-    diagonal metric. `mesh=` is not ported and raises
-    NotImplementedError, as does a model with discrete priors: the JAX
-    package's tempering evaluates the model without discrete values, so
-    it has no such path to port.
+    diagonal metric. A model with discrete priors raises
+    NotImplementedError: the JAX package's tempering evaluates the model
+    without discrete values, so it has no such path to port.
+
+    mesh: a `torch.distributed.device_mesh.DeviceMesh` (`parallel.
+    global_mesh`, `parallel.chain_mesh`) that spreads the ladder over the
+    ranks of a process group: its first axis shards the walkers, an
+    optional second axis the rungs; sizes that do not divide raise. Every
+    rank calls this with the same arguments and a generator in the same
+    state, and draws the whole ladder's random numbers, keeping its block,
+    so that the run replays mesh=None. Explorer transitions stay on each
+    rank; what sums over walkers (a rung's acceptance, ChEES criterion and
+    moments, the swap counts) is all-reduced over the walker axis, a NUTS
+    tree's exit over every rank; a swap pass exchanges only each rank's
+    edge rungs (state, components, labels, directions) with its rung-axis
+    neighbours. Checkpoints hold the gathered ladder, written by rank 0,
+    and every rank resumes from the file. The returned Chains and info,
+    built from gathered values, are the same on every rank (seconds are
+    the slowest rank's). A one-rank mesh runs the code of mesh=None and
+    gives its bits.
 
     Besides the JAX package's info keys, info holds "logevidence_se" (the
     standard error of the log-evidence that the spread of the estimates of
     up to 8 disjoint walker groups gives), and for the rounds this call
-    ran: "n_grad_evals" (batched annealed value-and-gradient evaluations),
-    "n_sweeps" and "rounds" (per round its sweeps, seconds, the longest and
-    median per-rung leapfrog count over its sweeps, barriers, and round
-    trips so far).
+    ran: "n_grad_evals" (batched annealed value-and-gradient evaluations;
+    under a mesh the rank with the most), "rank_grad_evals" (each rank's,
+    walker-major over the mesh), "n_sweeps", "rounds" (per round its
+    sweeps, seconds, the longest and median per-rung leapfrog count over
+    its sweeps, barriers, and round trips so far) and "collectives" (this
+    rank's collective calls and the bytes it handed in).
     """
     if explorer not in ("nuts", "chees", "hmc"):
         raise ValueError(f"unknown explorer {explorer!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a ladder sharded across devices) is not ported to "
-            "octofitter_tpu_torch yet (ROADMAP Queue 1 item 9)"
-        )
     if model.discrete_names:
         raise NotImplementedError(
             "octofit_pigeons on a model with discrete priors "
@@ -303,21 +361,37 @@ def octofit_pigeons(
     D = model.D
     W, N, Nv = n_walkers, n_chains, n_chains_variational
     NT = N + Nv  # total rungs in the (possibly extended) ladder
-    C = W * NT
     dev, dtype = model.device, model.dtype
+    # the ladder's (walkers, rungs) grid; this rank holds walkers wb and
+    # rungs [r0, r1), the whole grid without a mesh
+    shard = (Shard.whole((W, NT)) if mesh is None
+             else Shard.from_mesh(mesh, (W, NT), ("n_walkers", "total rungs"), dev))
+    Wl, NTl = shard.local_grid
+    wb, rb = shard.blocks
+    r0, r1 = rb.start, rb.stop
+    C = Wl * NTl
+    # global rungs [g0, g1): this rank's with its neighbours' edge rungs
+    g0, g1 = r0 - (r0 > 0), r1 + (r1 < NT)
+    n_own = r1 - r0 - (r1 == NT)  # the swap pairs (j, j + 1) with j on this rank
+    writes_checkpoints = mesh is None or torch.distributed.get_rank() == 0
     annealed_vg = _make_annealed_vg(model)
 
     def host_tensor(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
+    def prior_draws():
+        # every walker's, this rank's block kept
+        return model.link(shard.draw(lambda n: model.sample_priors(generator, n), axes=(0,)))
+
     # --- initial states: the model's starting points when initialized,
     # prior draws otherwise; the prior rung is IID-refreshed every sweep
     pts = model.starting_points
     if pts is not None:
-        idx0 = torch.randint(len(pts), (C,), generator=generator, device=generator.device)
-        theta = pts[idx0.to(pts.device)].reshape(W, NT, D)
+        idx0 = shard.randint(generator, 0, len(pts))
+        theta = pts[idx0.to(pts.device)].reshape(Wl, NTl, D)
     else:
-        theta = model.link(model.sample_priors(generator, C)).reshape(W, NT, D)
+        theta = model.link(shard.draw(lambda n: model.sample_priors(generator, n))).reshape(
+            Wl, NTl, D)
 
     # per-leg annealing schedules (host side); rung order is
     # [prior ... target | target ... variational reference]
@@ -360,7 +434,7 @@ def octofit_pigeons(
                 f"checkpoint shape {tuple(st['theta'].shape)} does not match "
                 f"(n_walkers={W}, n_rungs={NT}, D={D})"
             )
-        theta = model.tensor(st["theta"])
+        theta = model.tensor(st["theta"])[wb, rb]
         betas_fix, betas_var = st["betas"], st["betas_var"]
         sigma_diag = st["sigma_diag"]
         labels, direction = st["labels"], st["direction"]
@@ -378,36 +452,40 @@ def octofit_pigeons(
         if verbosity >= 1:
             print(f"octofit_pigeons: resumed at round {start_round + 1}")
 
-    labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64, device=dev)
-    direction = torch.as_tensor(np.asarray(direction), dtype=torch.int64, device=dev)
-    trips = torch.as_tensor(int(n_round_trips), dtype=torch.int64, device=dev)
-    rungs = torch.arange(NT, device=dev)[None, :]
+    # on the device, a replica's direction is kept at the rung slot it
+    # occupies and moves with it through the swaps
+    direction = _slot_directions(labels, direction)
+    labels = torch.as_tensor(np.asarray(labels)[wb, rb], dtype=torch.int64, device=dev)
+    direction = torch.as_tensor(direction[wb, rb], dtype=torch.int64, device=dev)
+    targets = [N - 1, N] if Nv else [N - 1]  # the recorded rungs
 
-    samples_final, ll_by_temp_final = [], []
+    rec_theta, rec_ll = [], []
     rounds_info = []
     rejection = np.zeros(NT - 1)
     barrier = barrier_var = None
-    n_grad_evals = 0
+    n_grad_evals = rank_grad_evals = 0
     log_T_record = log_T
     for rnd in range(start_round, n_rounds):
         t_round = time.perf_counter()
         n_sweeps = 2 ** (rnd + 1)
         record = rnd == n_rounds - 1
         coeffs = _rung_coeffs(betas_fix, betas_var, q_active)
-        coeff_rows = host_tensor(coeffs).repeat(W, 1)
-        dc = host_tensor(coeffs[1:] - coeffs[:-1])  # (NT - 1, 3)
+        coeff_rows = host_tensor(coeffs[rb]).repeat(Wl, 1)
+        dc = host_tensor((coeffs[1:] - coeffs[:-1])[g0:g1 - 1])  # this rank's pairs, (g1 - g0 - 1, 3)
         qm, qls = host_tensor(q_mean), host_tensor(q_log_std)
-        sigma_t = host_tensor(sigma_diag)
+        sigma_t = host_tensor(sigma_diag[rb])
 
         def vg_batch(Theta):
             value, _, grad = annealed_vg(Theta, coeff_rows, qm, qls)
             return value, grad
 
-        # per-round accumulators: moments for the explorer metric, swap
-        # attempt / rejection counts
-        s1 = torch.zeros((NT, D), dtype=dtype, device=dev)
-        s2 = torch.zeros((NT, D), dtype=dtype, device=dev)
-        rej = torch.zeros((NT - 1,), dtype=dtype, device=dev)
+        # per-round accumulators: moments for the explorer metric (partial
+        # sums over this rank's walkers), accepted swaps of this rank's
+        # pairs, swap attempts, completed round trips
+        s1 = torch.zeros((NTl, D), dtype=dtype, device=dev)
+        s2 = torch.zeros((NTl, D), dtype=dtype, device=dev)
+        swaps = torch.zeros((NTl,), dtype=dtype, device=dev)
+        trips = torch.zeros((), dtype=torch.int64, device=dev)
         att = np.zeros(NT - 1)
         # the recording round samples with FROZEN tuning while the
         # adaptation keeps updating in the background, so the
@@ -430,78 +508,90 @@ def octofit_pigeons(
                 L = np.clip(np.ceil(u * np.exp(log_T_used) / eps_used), 1,
                             explorer_n_leapfrog).astype(np.int64)
                 Theta, alpha, g_logT = _chees_transition_rungs(
-                    vg_batch, Theta, lp, grad, generator, host_tensor(eps_used),
-                    sigma_t, L, u, NT)
+                    vg_batch, Theta, lp, grad, generator, host_tensor(eps_used[rb]),
+                    sigma_t, L[rb], u, NTl, shard)
                 n_grad_evals += 1 + int(L.max())
+                rank_grad_evals += 1 + int(L[rb].max())
             else:
-                eps_rows = host_tensor(eps_used).repeat(W)
-                sigma_rows = sigma_t.repeat(W, 1)
-                metric_rows = chain_metric(sigma_rows)
+                eps_rows = host_tensor(eps_used[rb]).repeat(Wl)
+                metric_rows = chain_metric(sigma_t.repeat(Wl, 1))
                 if explorer == "hmc":
                     L = np.full(NT, explorer_n_leapfrog)
                     Theta, _, _, stats = hmc_step(vg_batch, Theta, lp, grad, generator, eps_rows,
-                                                  metric_rows, explorer_n_leapfrog)
-                    n_grad_evals += 1 + explorer_n_leapfrog
+                                                  metric_rows, explorer_n_leapfrog, shard=shard)
+                    n = explorer_n_leapfrog
                 else:
                     Theta, _, _, stats, n = nuts_step(vg_batch, Theta, lp, grad, generator,
-                                                      eps_rows, metric_rows, explorer_max_depth)
+                                                      eps_rows, metric_rows, explorer_max_depth,
+                                                      shard=shard)
                     # each rung's longest tree, read below with the acceptance
-                    L = stats.n_steps.reshape(W, NT).amax(dim=0)
-                    n_grad_evals += 1 + n
-                alpha, g_logT = stats.acceptance_rate, torch.zeros_like(lp[:NT])
-            theta = Theta.reshape(W, NT, D)
+                    L = shard.max(stats.n_steps.reshape(Wl, NTl).amax(dim=0))
+                n_grad_evals += 1 + n
+                rank_grad_evals += 1 + n
+                alpha, g_logT = stats.acceptance_rate, torch.zeros_like(lp[:NTl])
+            theta = Theta.reshape(Wl, NTl, D)
 
             # --- regenerate the reference rungs IID: rung 0 from the
             # prior, the far end from the Gaussian reference once active
-            theta[:, 0, :] = model.link(model.sample_priors(generator, W))
+            prior = prior_draws()
+            if r0 == 0:
+                theta[:, 0, :] = prior
             if Nv:
                 if q_active:
-                    z = torch.randn((W, D), generator=generator, dtype=dtype,
-                                    device=generator.device)
-                    theta[:, NT - 1, :] = qm + torch.exp(qls) * z
+                    far = qm + torch.exp(qls) * shard.randn(generator, (D,), dtype, axes=(0,))
                 else:
-                    theta[:, NT - 1, :] = model.link(model.sample_priors(generator, W))
+                    far = prior_draws()
+                if r1 == NT:
+                    theta[:, NTl - 1, :] = far
 
-            F = _components(model, theta.reshape(C, D), qm, qls).reshape(W, NT, 3)
-            ll = F[:, :, 1]
+            F = _components(model, theta.reshape(C, D), qm, qls).reshape(Wl, NTl, 3)
 
             # --- one deterministic even/odd swap pass over the ladder;
             # log alpha = (c_{i+1} - c_i) . (F_i - F_{i+1}); the
-            # target|target pair has dc = 0, so it always accepts
-            active = (np.arange(NT - 1) % 2) == i0
-            dF = F[:, :-1, :] - F[:, 1:, :]
-            log_alpha = torch.where(dc != 0, dc * dF, 0.0).sum(-1)  # (W, NT - 1)
-            u_sw = torch.rand((W, NT - 1), generator=generator, dtype=dtype,
-                              device=generator.device)
+            # target|target pair has dc = 0, so it always accepts. A pair
+            # across two ranks is decided on both from the same numbers.
+            th_x, F_x, lab_x, dir_x = _with_neighbour_rungs(
+                shard, r0 > 0, r1 < NT, theta, F, labels, direction)
+            active = (np.arange(g0, g1 - 1) % 2) == i0
+            dF = F_x[:, :-1, :] - F_x[:, 1:, :]
+            log_alpha = torch.where(dc != 0, dc * dF, 0.0).sum(-1)  # (W_l, g1 - g0 - 1)
+            u_sw = shard.rand(generator, (NT - 1,), dtype, axes=(0,))[:, g0:g1 - 1]
             active_t = torch.as_tensor(active, device=dev)
             accept_swap = active_t[None, :] & (torch.log(u_sw) < log_alpha)
-            theta, ll, _, labels = apply_deo_swap(theta, ll, accept_swap, labels)
+            th_x, ll_x, idx, lab_x = apply_deo_swap(th_x, F_x[:, :, 1], accept_swap, lab_x)
+            dir_x = torch.gather(dir_x, 1, idx)
+            k = r0 - g0
+            theta, ll, labels, direction = (x[:, k:k + NTl] for x in (th_x, ll_x, lab_x, dir_x))
 
-            # --- accumulators and round trips (a replica completes a
-            # trip when it returns to the bottom rung while descending)
+            # --- accumulators and round trips: the replica at the top
+            # slot turns down; one at the bottom slot that is descending
+            # completes a trip and turns up
             s1 += theta.sum(dim=0)
             s2 += (theta * theta).sum(dim=0)
-            att += active
-            rej += active_t.to(dtype) * (1.0 - accept_swap.to(dtype).mean(dim=0))
-            at_top = labels[:, -1:] == rungs
-            direction = torch.where(at_top & (direction == 1), -1, direction)
-            completed = (labels[:, 0:1] == rungs) & (direction == -1)
-            trips = trips + completed.sum()
-            direction = torch.where(completed, 1, direction)
+            att += (np.arange(NT - 1) % 2) == i0
+            swaps[:n_own] += accept_swap[:, k:k + n_own].sum(dim=0).to(dtype)
+            if r1 == NT:
+                top = direction[:, NTl - 1]
+                direction[:, NTl - 1] = torch.where(top == 1, -1, top)
+            if r0 == 0:
+                completed = direction[:, 0] == -1
+                trips = trips + completed.sum()
+                direction[:, 0] = torch.where(completed, 1, direction[:, 0])
 
             if record:
-                # target rung(s): the fixed leg's at N - 1, and the
+                # the target rung(s): the fixed leg's at N - 1, and the
                 # variational leg's at N when present
-                samples_final.append(theta[:, N - 1:N + 1].transpose(0, 1).reshape(-1, D)
-                                     if Nv else theta[:, N - 1].clone())
-                ll_by_temp_final.append(ll)
+                rec_theta.append(torch.stack(
+                    [theta[:, t - r0] if r0 <= t < r1 else theta.new_zeros((Wl, D))
+                     for t in targets], dim=1))
+                rec_ll.append(ll)
 
             # --- explorer adaptation, elementwise over rungs, from the
             # one read of this sweep
-            rows = [alpha.reshape(W, NT).mean(dim=0), g_logT.to(dtype)]
+            rows = [shard.sum(alpha.reshape(Wl, NTl).sum(dim=0)) / W, g_logT.to(dtype)]
             if explorer == "nuts":
                 rows.append(L.to(dtype))
-            read = torch.cat(rows).cpu().double().numpy().reshape(len(rows), NT)
+            read = shard.gather(torch.stack(rows), 1, dim=1).cpu().double().numpy()
             acc_mean, g_logT_h = read[0], read[1]
             if explorer == "nuts":
                 L = read[2].astype(np.int64)
@@ -516,11 +606,12 @@ def octofit_pigeons(
 
         # ---- between rounds: read the round's accumulators once, then
         # adapt the schedule, the explorer metric and the reference
-        s1 = s1.cpu().double().numpy()
-        s2 = s2.cpu().double().numpy()
-        rej_round = rej.cpu().double().numpy()
-        n_round_trips = int(trips)
+        s1 = shard.gather(shard.sum(s1), 1).cpu().double().numpy()
+        s2 = shard.gather(shard.sum(s2), 1).cpu().double().numpy()
+        swaps = shard.gather(shard.sum(swaps), 1)[:NT - 1].cpu().double().numpy()
+        n_round_trips += int(shard.sum_all(trips))
         s_count = n_sweeps * W
+        rej_round = att - swaps / W
         r = np.where(att > 0, rej_round / np.maximum(att, 1), 0.0)
         r = np.clip(r, 1e-4, 1 - 1e-4)
         rejection = r
@@ -539,8 +630,8 @@ def octofit_pigeons(
             betas_var_report = np.asarray(betas_var).copy()
         # Syed et al. schedule update per leg: equalize rejection (after
         # the recording round too, for the continuation state)
-        targets = np.linspace(0, lam[-1], N)
-        new_b = np.interp(targets, lam, betas_fix)
+        targets_b = np.linspace(0, lam[-1], N)
+        new_b = np.interp(targets_b, lam, betas_fix)
         new_b[0], new_b[-1] = 0.0, 1.0
         betas_fix = np.sort(new_b)
         if Nv:
@@ -574,8 +665,10 @@ def octofit_pigeons(
             q_active = True
 
         L_round = np.stack(L_round)
+        seconds = shard.max_all(torch.tensor(time.perf_counter() - t_round, dtype=torch.float64,
+                                             device=dev))
         rounds_info.append(dict(
-            round=rnd + 1, sweeps=n_sweeps, seconds=time.perf_counter() - t_round,
+            round=rnd + 1, sweeps=n_sweeps, seconds=float(seconds),
             L_longest=int(L_round.max()), L_median=float(np.median(L_round)),
             acceptance=np.mean(acc_round, axis=0),
             barrier=float(barrier),
@@ -592,35 +685,43 @@ def octofit_pigeons(
             )
 
         if checkpoint is not None:
-            _pt_save_checkpoint(
-                checkpoint + ".final.npz" if record else checkpoint,
-                dict(
-                    theta=theta, betas=betas_fix, betas_var=betas_var,
-                    sigma_diag=sigma_diag, labels=labels, direction=direction,
-                    n_round_trips=n_round_trips, sweep_counter=sweep_counter,
-                    next_round=rnd + 1, da=da, log_T=log_T, adam=adam,
-                    q_mean=q_mean, q_log_std=q_log_std, q_active=q_active,
-                    generator=generator,
-                ),
+            labels_all = shard.gather_all(labels, (0, 1)).cpu().numpy()
+            state = dict(
+                theta=shard.gather_all(theta, (0, 1)), labels=labels_all,
+                direction=_replica_directions(
+                    labels_all, shard.gather_all(direction, (0, 1)).cpu().numpy()),
+                betas=betas_fix, betas_var=betas_var, sigma_diag=sigma_diag,
+                n_round_trips=n_round_trips, sweep_counter=sweep_counter,
+                next_round=rnd + 1, da=da, log_T=log_T, adam=adam,
+                q_mean=q_mean, q_log_std=q_log_std, q_active=q_active, generator=generator,
             )
+            if writes_checkpoints:
+                _pt_save_checkpoint(checkpoint + ".final.npz" if record else checkpoint, state)
 
     if theta.is_cuda:
         torch.cuda.synchronize(theta.device)
-    t_total = time.perf_counter() - t_start
+    t_total = float(shard.max_all(torch.tensor(time.perf_counter() - t_start,
+                                               dtype=torch.float64, device=dev)))
 
     # ------------------------------------------------------------------
     # stepping-stone log evidence from the recording round's loglikes on
     # the FIXED (prior-referenced) leg; the variational leg's reference is
     # not normalized against the prior
-    lls = torch.stack(ll_by_temp_final).cpu().double().numpy()  # (S, W, NT)
+    lls = shard.gather_all(torch.stack(rec_ll), (1, 2)).cpu().double().numpy()  # (S, W, NT)
     log_z = _stepping_stone(lls[:, :, :N], betas_report)
     groups = np.array_split(np.arange(W), min(W, 8))
     group_z = [_stepping_stone(lls[:, g, :N], betas_report) for g in groups]
     log_z_se = np.std(group_z, ddof=1) / math.sqrt(len(groups)) if W > 1 else np.nan
 
     # ------------------------------------------------------------------
-    samples = torch.stack(samples_final).transpose(0, 1)  # (2W or W, S, D)
-    Wn, S, _ = samples.shape
+    # the target rungs' draws: each from the rank that holds its rung
+    rec = torch.stack(rec_theta)                                  # (S, W_l, targets, D)
+    parts = shard.stack_gather(rec, 1)                            # (rung ranks, ...)
+    rec = torch.stack([parts[t // NTl, :, :, j] for j, t in enumerate(targets)], dim=2)
+    rec = shard.gather(rec, 0, dim=1)                             # (S, W, targets, D)
+    S = rec.shape[0]
+    samples = rec.permute(2, 1, 0, 3).reshape(len(targets) * W, S, D)
+    Wn = samples.shape[0]
     cols, lp, ll = _post_columns(model, samples.reshape(-1, D))
     data = {k: v.reshape(Wn, S) for k, v in cols.items()}
     internals = {
@@ -628,6 +729,7 @@ def octofit_pigeons(
         "loglike": ll.reshape(Wn, S),
         "logpost": (lp + ll).reshape(Wn, S),
     }
+    rank_evals = shard.gather_all(torch.tensor([[rank_grad_evals]], device=dev), (0, 1))
     info = {
         "sampler": "pt_deo",
         "explorer": explorer,
@@ -641,8 +743,10 @@ def octofit_pigeons(
         "swap_rejection": rejection,
         "sampling_time_s": t_total,
         "n_grad_evals": n_grad_evals,
+        "rank_grad_evals": rank_evals.reshape(-1).tolist(),
         "n_sweeps": sum(r["sweeps"] for r in rounds_info),
         "rounds": rounds_info,
+        "collectives": shard.stats,
     }
     if Nv:
         info["betas_variational"] = betas_var_report

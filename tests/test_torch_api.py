@@ -84,6 +84,18 @@ def test_appendix_a_name_is_exported(name):
     assert hasattr(ot, name), name
 
 
+@pytest.mark.parametrize("module", ["parallel", "utils"])
+def test_subpackage_exports_match_jax(module):
+    """`parallel` (the nine names of the JAX package's) and `utils`
+    (`profile_trace`, `timing_probe`)."""
+    import importlib
+
+    want = importlib.import_module(f"octofitter_tpu.{module}").__all__
+    got = importlib.import_module(f"octofitter_tpu_torch.{module}")
+    assert got.__all__ == want
+    assert all(callable(getattr(got, name)) for name in want)
+
+
 @pytest.fixture(scope="module")
 def headline():
     """The headline model in both packages, and 6 points near its truth."""

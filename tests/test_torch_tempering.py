@@ -205,8 +205,6 @@ def test_unported_options_raise():
     # Gibbs-within-HMC samples discrete priors, of which this model has none
     with pytest.raises(ValueError, match="discrete priors"):
         ot.octofit(m, sampler="gibbs", verbosity=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ot.octofit_pigeons(m, explorer="chees", mesh=object(), verbosity=0)
     with pytest.raises(ValueError, match="n_chains_variational"):
         ot.octofit_pigeons(m, explorer="chees", n_chains_variational=1, verbosity=0)
 
