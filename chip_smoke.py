@@ -286,6 +286,22 @@ non-zero:
    sweep, collectives per sweep and their bytes beside `mesh=None`'s.
    After the joins, (g) the fused pair against its plain versions at the
    ranks' shapes (PARALLEL_SHAPES).
+36. plots (`octofitter_tpu_torch/plots/`, after the joins; imports neither
+   matplotlib nor h5py): each orbit-drawing panel's arrays (its private
+   `_*_arrays` function, all draws in one batch) in float32 on the card
+   and in float64 on the CPU from the same chain and draws, each array
+   within a limit derived from the fused pair's per-field tolerances
+   (`_field_tolerances`) plus float32's rounding of the epochs and
+   elements, each panel's launches printed (no backward; the orbits
+   through a kernel) with its ms on the card and on the CPU: (a)
+   octoplot's panels of 5's fit at PLOT_DRAWS draws; (b) those of 9's
+   model and rvtimeplot's and rvpostplot's (`gp_predict` included) of
+   18's, on chains of points near their truths; (c) astromplot's
+   mark_epochs_mjd sep/PA summary; (d) the native table reader builds and
+   `load_gost_csv` through it equals the csv module's bit for bit; (e) the
+   forward kernel and the Kepler kernel against their plain versions at
+   every shape (a)-(c) launched them with (the forward on the inputs a
+   panel gave it there, the Kepler kernel on `kepler_path_phase`'s draws).
 
 Phases 1-7 run in this process alone. Then six jobs start, each in a
 process of its own on the same card (`_Workers`): 8 and 9; 14 and 15; the
@@ -298,7 +314,7 @@ have ended, with the card to this process again: every kernel check and
 timing against a plain version that 9, 10, 12, 14, 18, 22, 26, 29, 34 and
 35 call for, 13, 17, and the checks of 18.
 A job that fails fails the script, with its log printed; the processes
-end with the script.
+end with the script. 36 runs last, in this process.
 
 The second-to-last line is a JSON object describing each kernel in
 float32 at the shape the main path launches it with (`max_abs_err`: of E
@@ -346,7 +362,9 @@ its rows at their shapes (`nested_*` float64, `nested_ex04_*`, `cv_*`,
 the launches of 35 by part and, for (b)-(d), by rank (`parallel_launches`),
 the fused pair its rows at a rank's half of the ladder (`parallel_*`,
 `parallel_f64_*`) and of the sharded chains (`parallel_sharded_*`);
-the last is `{"ok": true, "device": {...}}`. Imports no JAX.
+every kernel carries the launches of 36 by panel (`plots_launches`), the
+Kepler kernel and the forward kernel their rows at the shapes 36 launched
+them with (`plots_shapes`); the last is `{"ok": true, "device": {...}}`. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -456,9 +474,13 @@ RESID_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # on top of the Kepler tolerance TOL; both grow with |M|/50. A field's
 # tolerance is E's carried through the field's derivative with respect to
 # E, plus OWN for the roundings of the field's own arithmetic: positions
-# scale with a, the true anomaly with sqrt(1 - e^2) / (1 - e cos E),
-# velocities with a n / (1 - e cos E)^2, and the sky fields with the
-# parallax and the unit factors on top.
+# scale with a, the true anomaly with sqrt(1 - e^2) / (1 - e cos E), and
+# the sky fields with the parallax and the unit factors on top. The
+# velocity vector's derivative with respect to E has length
+# a n / (1 - e cos E), and rounding 1 - e cos E moves the velocity by
+# a n / (1 - e cos E)^2 times an ulp: velocities scale with
+# a n / min(1 - e cos E, (1 - e cos E)^2), the first term near apoapsis
+# (1 - e cos E up to 1 + e), the second near periapsis.
 MA_TOL = {torch.float32: 1.2e-5, torch.float64: 2.5e-14}
 OWN = {torch.float32: 1e-6, torch.float64: 1e-13}
 # Backward: for each chain, the largest error over the 8 element rows
@@ -477,6 +499,8 @@ BIG_CHAINS, BIG_EPOCHS = 2**17, 64
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 OPS_KEPLER, OPS_ORBIT_FWD, OPS_ORBIT_BWD = 90, 200, 250
+# the kernels of the `kernels` line, in its order
+KERNEL_NAMES = ("kepler_solve", "orbit_solve_fwd", "orbit_solve_bwd", "celerite_fwd", "celerite_bwd")
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -638,19 +662,22 @@ def _orbit_inputs(n_chains: int, n_epochs: int, dtype, span=None, grid=(55000.0,
             torch.as_tensor(epochs, dtype=dtype, device="cuda"))
 
 
-def _field_tolerances(elems, t, EA, dtype):
-    """(14, B, T) absolute tolerances, evaluated in float64 (see OWN)."""
+def _field_tolerances(elems, t, EA, dtype, d_ma=0.0):
+    """(14, B, T) absolute tolerances, evaluated in float64 (see OWN). The
+    epochs t are (T,), or (B, T) for per-chain epochs. `d_ma`: what
+    rounding the inputs moves the mean anomaly by, where the two sides of a
+    comparison did not start from the same inputs (phase 36)."""
     from octofitter_tpu_torch.constants import AUDAY_TO_MS, JULIAN_YEAR_DAYS, KEPLER_YEAR_DAYS
 
     a, e, _, _, _, tp, mass, plx = (x.double()[:, None] for x in elems)
     n = 2 * math.pi / (torch.sqrt(a**3 / mass) * KEPLER_YEAR_DAYS)
     scale = torch.clamp((n * (t.double() - tp)).abs() / 50.0, min=1.0)
     f1 = 1 - e * torch.cos(EA.double())
-    d_E = (TOL[dtype] + MA_TOL[dtype] / f1) * scale
+    d_E = (TOL[dtype] + (MA_TOL[dtype] + d_ma) / f1) * scale
     own = OWN[dtype]
     nu = d_E * torch.sqrt(1 - e * e) / f1 + own
     pos = a * (d_E + own)
-    vel = a * n / (f1 * f1) * (d_E + own)
+    vel = a * n / torch.minimum(f1, f1 * f1) * (d_E + own)
     return torch.stack([d_E, nu, pos, pos, pos, pos, vel, vel, vel, pos * plx, pos * plx,
                         vel * plx * JULIAN_YEAR_DAYS, vel * plx * JULIAN_YEAR_DAYS,
                         vel * AUDAY_TO_MS])
@@ -1102,6 +1129,27 @@ def joint_points_near_truth(ot, model, n, seed):
     rng = np.random.default_rng(seed)
     return model.link(model.tensor(nat)).cpu().double() + torch.as_tensor(
         1e-3 * rng.standard_normal((n, model.D)))
+
+
+def points_chain(ot, model, theta_t, n_chains):
+    """A Chains of unconstrained points (n_chains * n_draws, D), as a
+    sampler returns one: the draws in natural coordinates with every
+    derived column (`arr2nt`, `flatten_params_batch`) and each draw's
+    log posterior as `logpost`."""
+    from octofitter_tpu_torch.chains import flatten_params_batch
+
+    theta_t = model.tensor(theta_t)
+    with torch.no_grad():
+        nts = model.arr2nt(model.invlink(theta_t))
+        lp = model.ln_post(theta_t)
+    n = theta_t.shape[0]
+    data = {}
+    for k, v in flatten_params_batch(nts).items():
+        if v.ndim == 0 or v.shape[0] != n:  # a constant: the same for every draw
+            v = np.broadcast_to(v, (n,))
+        data[k] = np.asarray(v, dtype=np.float64).reshape(n_chains, -1)
+    logpost = lp.double().cpu().numpy().reshape(n_chains, -1)
+    return ot.Chains(data, {"logpost": logpost}, {"sampler": "points_chain"})
 
 
 def reference_phase(label, model, ref, pts) -> None:
@@ -5326,6 +5374,509 @@ def parallel_kernel_keys(kernels, res) -> None:
                           f"{kd}_bound_by": bnd[1]})
 
 
+# Phase 36: the plots' arrays on the card (`octofitter_tpu_torch/plots/`).
+# The GPU machine has no matplotlib, so the phase calls each panel's
+# private `_*_arrays` function, the computation that the drawing function
+# draws, on the card in float32 and on a float64 CPU model from the same
+# chain and draws (both choose them as the JAX package does), after the
+# jobs have joined: (a) octoplot's panels of the headline fit (its 4096 x
+# 100 draws) at PLOT_DRAWS draws; (b) those of examples/02's joint model
+# (astrometry, astrometry in time, RV, HGCA) and rvtimeplot's and
+# rvpostplot's of examples/03's RV-GP model, on chains of points near
+# their truths (PLOT_POINT_CHAINS x PLOT_POINT_DRAWS); (c) astromplot's
+# mark_epochs_mjd summary; (d) the native table reader; (e) the forward
+# kernel and the Kepler kernel against their plain versions at every shape
+# (a)-(c) launched them with.
+PLOT_DRAWS = (50, 4096)  # octoplot's default, and a wide shape
+PLOT_MARKS = (57500.0, 58500.0, 59500.0)
+PLOT_POINT_CHAINS, PLOT_POINT_DRAWS = 64, 64
+F32_HALF_ULP = 2.0**-24  # float32's rounding, relative
+
+
+def _plots_module():
+    import importlib
+
+    # the module, not the function `plots.octoplot` that shadows its name
+    return importlib.import_module("octofitter_tpu_torch.plots.octoplot")
+
+
+def _float32_chain(ot, chain):
+    """`chain` with its columns rounded to float32, so that the card's
+    model and the CPU's read the same values."""
+    return ot.Chains({k: np.asarray(v, dtype=np.float32).astype(np.float64)
+                      for k, v in chain.data.items()}, chain.internals, chain.info)
+
+
+def _plot_limits(ot, ref, chain, planet, n_draws, t=None, rows=None, dtype=torch.float32):
+    """(14, n, T) limits of a card evaluation of the draws' fields in
+    `dtype` against the float64 CPU `ref`'s: the fused pair's per-field
+    tolerances (`_field_tolerances`) plus, in float32, what rounding the
+    epochs, tp, a and M to float32 moves the mean anomaly by, at the epochs
+    `t` (numpy), at the MAP draw (`rows`, (1, D)) or, with t None, along
+    each draw's track over one period; and each draw's reflex factor
+    |m / M| (n, 1), 1 for a planet without a mass."""
+    op = _plots_module()
+    with torch.no_grad():
+        if rows is None:
+            orbit, m = op._sample_orbits(ref, chain, planet, n_draws)
+        else:
+            nt, orbits = op.orbits_of(ref, rows)
+            i = [p.name for p in ref.system.planets].index(planet)
+            orbit, m = orbits[i], op.planet_mass(ref, nt, planet, len(rows))
+        tt = op.period_tracks(orbit, 200, ref.dtype, ref.device) if t is None else ref.tensor(t)
+        sol = op.solve_tracks(orbit, tt) if t is None else ot.orbitsolve(orbit, tt)
+    n = orbit.tp.shape[0]
+
+    def field(name, default):
+        x = getattr(orbit, name, None)
+        return torch.full((n,), default, dtype=torch.float64) if x is None else \
+            torch.broadcast_to(x, (n,)).double()
+
+    elems = torch.stack([field("a", 0.0), field("e", 0.0), field("i", math.pi / 2),
+                         field("omega", 0.0), field("Omega", 0.0), field("tp", 0.0),
+                         field("M", 1.0), field("plx", 1.0)])
+    from octofitter_tpu_torch.constants import KEPLER_YEAR_DAYS
+
+    a, tp, mass = elems[0][:, None], elems[5][:, None], elems[6][:, None]
+    mean_motion = 2 * math.pi / (torch.sqrt(a**3 / mass) * KEPLER_YEAR_DAYS)
+    d_ma = F32_HALF_ULP * (mean_motion * (tt.abs() + tp.abs())
+                           + 2 * (mean_motion * (tt - tp)).abs()) if dtype == torch.float32 else 0.0
+    lim = _field_tolerances(elems, tt, sol.EA, dtype, d_ma)
+    factor = torch.ones((n, 1), dtype=torch.float64) if m is None else \
+        torch.where(m[:, None] != 0, (m[:, None] / mass).abs(), 1.0)
+    return lim.numpy(), factor.numpy()
+
+
+def _circular(d, period):
+    """|d| modulo `period`, the shorter way round."""
+    d = np.mod(np.abs(d), period)
+    return np.minimum(d, period - d)
+
+
+def _panel_checks(ot, name, ref, chain, kwargs, got, want):
+    """[(key, |card - CPU|, limit)] for each array of the panel `name`."""
+    planet = ref.system.planets[0].name
+    n_draws = kwargs.get("n_draws")
+    if name == "astromplot":
+        lim, _ = _plot_limits(ot, ref, chain, planet, n_draws)
+        out = [("ra", abs(got["ra"] - want["ra"]), lim[9]),
+               ("dec", abs(got["dec"] - want["dec"]), lim[10])]
+        if "mark_ra" in want:
+            lim, _ = _plot_limits(ot, ref, chain, planet, n_draws, want["marks"])
+            out += [("mark_ra", abs(got["mark_ra"] - want["mark_ra"]), lim[9]),
+                    ("mark_dec", abs(got["mark_dec"] - want["mark_dec"]), lim[10])]
+        return out
+    if name == "physorbitplot":
+        # AbsoluteVisual runs in float64 on the card (see `_plot_panel`'s callers)
+        lim, _ = _plot_limits(ot, ref, chain, planet, n_draws, dtype=torch.float64)
+        return [("x", abs(got["x"] - want["x"]), lim[3]),
+                ("y", abs(got["y"] - want["y"]), lim[4])]
+    if name == "astromtimeplot":
+        lim, _ = _plot_limits(ot, ref, chain, planet, n_draws, want["ts"])
+        pos = lim[9] + lim[10]
+        return [("sep", abs(got["sep"] - want["sep"]), pos),
+                ("pa", _circular(got["pa"] - want["pa"], 360.0),
+                 np.degrees(pos / np.maximum(want["sep"], 1e-300)))]
+    if name in ("rvtimeplot", "hgcaplot"):
+        out = []
+        for k, p in enumerate(ref.system.planets):
+            lim, factor = _plot_limits(ot, ref, chain, p.name, n_draws, want["ts"])
+            if name == "rvtimeplot":
+                out.append((f"rv {p.name}", abs(got["rv"][k] - want["rv"][k]), lim[13] * factor))
+            else:
+                for key, row in (("pmra", 11), ("pmdec", 12)):
+                    # a draw without a mass has factor 1 here and a value of 0 both sides
+                    out.append((f"{key} {p.name}", abs(got[key][k] - want[key][k]),
+                                lim[row] * factor))
+        return out
+    if name == "rvpostplot":
+        return _rvpost_checks(ot, ref, chain, planet, n_draws, got, want)
+    raise KeyError(name)
+
+
+def _rvpost_checks(ot, ref, chain, planet, n_draws, got, want):
+    """rvpostplot: the draws' Keplerian RV at the MAP period's grid; the
+    data's phase (float32's period moves it by a few ulp of (t - tp) / P,
+    modulo 1); the detrended data and the residuals, which add to the MAP
+    Keplerian part's RV the GP's prediction by a float32 Cholesky
+    solve, moved by up to 16 kappa 2^-24 of the residuals' size (kappa:
+    the condition number of K + diag(var) at the MAP draw, on the CPU)."""
+    from octofitter_tpu_torch.model.params import Params
+
+    op = _plots_module()
+    lim, factor = _plot_limits(ot, ref, chain, planet, n_draws, want["ts"])
+    out = [("rv draws", abs(got["rv"] - want["rv"]), lim[13] * factor)]
+    row = op.map_row(ref, chain)
+    nt, _ = op.orbits_of(ref, row)
+    for k, obs in enumerate(op._rv_observations(ref)):
+        t = obs.table
+        g, w = got["obs"][k], want["obs"][k]
+        lim, factor = _plot_limits(ot, ref, chain, planet, None, t["epoch"], rows=row)
+        kep = (lim[13] * factor)[0]
+        size = np.abs(w["resid"]).max() + np.abs(t["rv"]).max() + np.abs(w["rv_detrended"]).max()
+        gp = 0.0
+        if getattr(obs, "gaussian_process", None) is not None:
+            theta_obs = nt.observations.get(obs.normalized_name, Params())
+            jitter = theta_obs.get("jitter", ref.tensor(0.0)).reshape(-1)[0]
+            epochs = ref.tensor(t["epoch"])
+            K = obs.gaussian_process(theta_obs).matrix(epochs, epochs).reshape(
+                len(epochs), len(epochs))
+            K = K + torch.diag(ref.tensor(t["σ_rv"]) ** 2 + jitter**2)
+            gp = 16 * float(torch.linalg.cond(K)) * F32_HALF_ULP * size
+        data = kep + gp + 8 * F32_HALF_ULP * size
+        phase = 8 * F32_HALF_ULP * (np.abs(t["epoch"] - want["tp_map"]) / want["P_map"] + 1.0)
+        out += [(f"{obs.name} phase", _circular(g["phase"] - w["phase"], 1.0), phase),
+                (f"{obs.name} detrended", abs(g["rv_detrended"] - w["rv_detrended"]), data),
+                (f"{obs.name} residuals", abs(g["resid"] - w["resid"]), data)]
+    return out
+
+
+def _plot_panel(ot, kk, osk, label, name, model, ref, chain, kwargs) -> dict:
+    """One panel's arrays on the card (after one call that warms it up; the
+    launch counts set to 0 just before the timed call and read just after)
+    and on the CPU, each timed by the host clock; every array held within
+    its limit. No backward may run, and the orbits must go through a
+    kernel."""
+    op = _plots_module()
+    from octofitter_tpu_torch.orbits import elements
+    from octofitter_tpu_torch.plots import panels
+
+    fn = getattr(op, f"_{name}_arrays", None) or getattr(panels, f"_{name}_arrays")
+    # the warm-up call counts the forward kernel's launches by (B, T) and
+    # keeps its inputs at each, for (e)
+    inputs, fwd_shapes, forward = {}, {}, elements.orbit_solve_forward_cuda
+
+    def keep_inputs(elems, t):
+        shape = (elems.shape[1], t.shape[0])
+        inputs.setdefault(shape, (elems.clone(), t.clone()))
+        fwd_shapes[shape] = fwd_shapes.get(shape, 0) + 1
+        return forward(elems, t)
+
+    elements.orbit_solve_forward_cuda = keep_inputs
+    try:
+        fn(model, chain, **kwargs)
+    finally:
+        elements.orbit_solve_forward_cuda = forward
+    torch.cuda.synchronize()
+    _reset_launches(kk, osk)
+    t0 = time.perf_counter()
+    got = fn(model, chain, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches(kk, osk)
+    if sum(fwd_shapes.values()) != launches["orbit_solve_fwd"]:
+        raise AssertionError(f"plots {label}: the warm-up call launched the forward "
+                             f"{fwd_shapes}, the timed call {launches['orbit_solve_fwd']} times")
+    shapes = {"fwd": fwd_shapes, "kepler": {(s, model.dtype): c for s, c in kk.launch_shapes.items()}}
+    t0 = time.perf_counter()
+    want = fn(ref, chain, **kwargs)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    worst, detail = 0.0, []
+    for key, err, limit in _panel_checks(ot, name, ref, chain, kwargs, got, want):
+        err, limit = np.broadcast_arrays(np.asarray(err, dtype=np.float64), limit)
+        bad = ~(err <= limit)
+        ratio = float(np.max(err / np.where(limit > 0, limit, np.inf), initial=0.0))
+        if bad.any() or not np.isfinite(err).all():
+            raise AssertionError(
+                f"plots {label}: {key} on the card is {float(np.nanmax(err)):.3e} from the CPU's "
+                f"at {int(bad.sum())} of {err.size} entries beyond their limits")
+        worst = max(worst, ratio)
+        detail.append(f"{key} {float(err.max()):.3e} ({ratio:.3f})")
+    kern = {k: launches[k] for k in ("orbit_solve_fwd", "orbit_solve_bwd", "kepler_solve")}
+    log(f"plots {label}: card {ms:.2f} ms, CPU float64 {cpu_ms:.2f} ms; launches {kern}, "
+        f"forward by shape {shapes['fwd']}, kepler_solve by shape {shapes['kepler']}; "
+        f"max |card - CPU| (of its limit): {'; '.join(detail)}")
+    if launches["orbit_solve_bwd"]:
+        raise AssertionError(f"plots {label}: the fused backward ran for a plot")
+    if not launches["orbit_solve_fwd"] + launches["kepler_solve"]:
+        raise AssertionError(f"plots {label}: no orbit went through a kernel")
+    return {"ms": ms, "cpu_ms": cpu_ms, "launches": launches, "shapes": shapes,
+            "worst": worst, "arrays": (got, want), "inputs": inputs}
+
+
+def _mark_checks(ot, ref, chain, n_draws, got, want) -> None:
+    """(c): astromplot's sep/PA summary of each marked epoch on the card
+    against the CPU's: each mean and spread within the largest move of a
+    draw's separation (its position's limits summed) and of its position
+    angle (that over the separation)."""
+    op = _plots_module()
+    lim, _ = _plot_limits(ot, ref, chain, ref.system.planets[0].name, n_draws, want["marks"])
+    pos = lim[9] + lim[10]
+    sep = np.hypot(want["mark_ra"], want["mark_dec"])
+    for k, t_mark in enumerate(want["marks"]):
+        s_t = op.mark_summary(got["mark_ra"][:, k], got["mark_dec"][:, k])
+        s_c = op.mark_summary(want["mark_ra"][:, k], want["mark_dec"][:, k])
+        d_sep, d_pa = float(pos[:, k].max()), float(np.degrees((pos[:, k] / sep[:, k]).max()))
+        diffs = (abs(s_t[0] - s_c[0]), abs(s_t[1] - s_c[1]),
+                 float(_circular(s_t[2] - s_c[2], 360.0)), abs(s_t[3] - s_c[3]))
+        log(f"plots marks n={n_draws} MJD {t_mark:.1f}: card sep {s_t[0]:.4f} ± {s_t[1]:.4f} mas, "
+            f"PA {s_t[2]:.5f} ± {s_t[3]:.5f} deg; CPU sep {s_c[0]:.4f} ± {s_c[1]:.4f} mas, "
+            f"PA {s_c[2]:.5f} ± {s_c[3]:.5f} deg; differences {[f'{d:.2e}' for d in diffs]} "
+            f"(limits {d_sep:.2e} mas, {d_pa:.2e} deg)")
+        if not (diffs[0] <= d_sep and diffs[1] <= d_sep and diffs[2] <= d_pa and diffs[3] <= d_pa):
+            raise AssertionError(f"plots marks: the card's sep/PA summary at MJD {t_mark} "
+                                 f"disagrees with the CPU's: {diffs}")
+
+
+# (d)'s tables: a GOST forecast over DR4's 66 months (twice GOST_TRANSITS,
+# which spans DR3's 34), and one of a hundred such stars in one file
+NATIVE_TRANSITS = (2 * GOST_TRANSITS, 200 * GOST_TRANSITS)
+
+
+def _native_check(directory) -> dict:
+    """(d): the native table reader builds (g++, at first use) and reads a
+    GOST forecast's numeric columns bit for bit as
+    `scanlaw.read_csv_columns` (the `csv` module) does, so that
+    `load_gost_csv` of either's columns agree; then
+    both readers timed by the host clock at each of NATIVE_TRANSITS."""
+    from octofitter_tpu_torch import native
+    from octofitter_tpu_torch.astrom import scanlaw
+
+    t0 = time.perf_counter()
+    built = native.available()  # builds at first use in the checkout, then cached
+    t_build = time.perf_counter() - t0
+    if not built:
+        raise AssertionError("plots: the native table reader did not build")
+    res = {"build_s": t_build, "library": native.library_path().name, "ms": {}}
+    for n in NATIVE_TRANSITS:
+        path = synth_gost_csv(directory, n=n)
+        fast, slow = native.read_csv_columns(path), scanlaw.read_csv_columns(path)
+        # a column of text is NaN by the csv module, strtod's leading number natively
+        numeric = [k for k in slow if np.isfinite(slow[k]).all()]
+        same = list(fast) == list(slow) and all(np.array_equal(fast[k], slow[k]) for k in numeric)
+        g_fast, g_slow = scanlaw.load_gost_csv(fast), scanlaw.load_gost_csv(slow)
+        same = same and all(np.array_equal(g_fast[k], g_slow[k]) for k in g_slow)
+        if not same:
+            raise AssertionError(f"plots: the native reader's columns of {n} transits differ "
+                                 f"from the csv module's")
+        n_iter = 20
+        times = {}
+        for label, f in (("native", native.read_csv_columns), ("csv", scanlaw.read_csv_columns)):
+            t0 = time.perf_counter()
+            for _ in range(n_iter):
+                f(path)
+            times[label] = (time.perf_counter() - t0) / n_iter * 1e3
+        res["ms"][n] = times
+        log(f"plots native: {n} transits read bit for bit alike by the native reader "
+            f"({times['native']:.4f} ms) and the csv module ({times['csv']:.4f} ms), "
+            f"{n_iter} reads each by the host clock")
+    log(f"plots native: {res['library']} available ({t_build:.2f} s here: it builds with g++ "
+        f"at its first use in a checkout)")
+    return res
+
+
+def plots_phase(ot, kk, osk, elements, kepler_mod, main) -> dict:
+    """Phase 36, with the card to this process: (a)-(c) each panel on the
+    card and on the CPU (`_plot_panel`), (d) the native reader, then (e)
+    the forward kernel and the Kepler kernel against their plain versions
+    at the shapes the panels launched them with."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    op = _plots_module()
+    f32 = torch.float32
+    res = {"panels": {}, "fwd_shapes": {}, "kepler_shapes": {}}
+    fwd_inputs = {}
+
+    def run(label, name, model, ref, chain, kwargs):
+        r = _plot_panel(ot, kk, osk, label, name, model, ref, chain, kwargs)
+        for part in ("fwd", "kepler"):
+            acc = res[f"{part}_shapes"]
+            for shape, count in r["shapes"][part].items():
+                acc[shape] = acc.get(shape, 0) + count
+        for shape, x in r["inputs"].items():
+            fwd_inputs.setdefault(shape, x)
+        res["panels"][label] = {k: r[k] for k in ("ms", "cpu_ms", "launches", "worst")}
+        return r
+
+    def octoplot_panels(case, model, ref, chain):
+        for n_draws in PLOT_DRAWS:
+            for _, name, kwargs in op._panel_jobs(model, chain, n_draws):
+                if name != "masspostplot":
+                    run(f"{case} {name} n={n_draws}", name, model, ref, chain, kwargs)
+
+    # (a) octoplot's panels of the headline fit, and (c) its marks
+    ref = build_model(ot, main["table"], device="cpu", dtype=torch.float64)
+    octoplot_panels("headline", main["model"], ref, main["chain"])
+    for n_draws in PLOT_DRAWS:
+        r = run(f"headline astromplot marks n={n_draws}", "astromplot", main["model"], ref,
+                main["chain"], dict(n_draws=n_draws, mark_epochs_mjd=PLOT_MARKS))
+        _mark_checks(ot, ref, main["chain"], n_draws, *r["arrays"])
+
+    # (b) examples/02's joint model, and examples/03's RV-GP model
+    n_points = PLOT_POINT_CHAINS * PLOT_POINT_DRAWS
+    data = joint_data(ot)
+    model = build_joint_model(ot, data, device="cuda", dtype=f32)
+    ref = build_joint_model(ot, data, device="cpu", dtype=torch.float64)
+    chain = _float32_chain(ot, points_chain(
+        ot, ref, joint_points_near_truth(ot, ref, n_points, seed=36), PLOT_POINT_CHAINS))
+    octoplot_panels("joint", model, ref, chain)
+    data = rvgp_data(ot)
+    model = build_rvgp_model(ot, data, device="cuda", dtype=f32)
+    ref = build_rvgp_model(ot, data, device="cpu", dtype=torch.float64)
+    chain = _float32_chain(ot, points_chain(
+        ot, ref, rvgp_points_near_truth(ot, ref, n_points, seed=36), PLOT_POINT_CHAINS))
+    for n_draws in PLOT_DRAWS:
+        for name in ("rvtimeplot", "rvpostplot"):
+            run(f"rv-gp {name} n={n_draws}", name, model, ref, chain, dict(n_draws=n_draws))
+    # the per-draw tracks of a basis that has no per-orbit-epoch solve (one
+    # `orbitsolve`, so one Kepler launch, per draw): physorbitplot on the
+    # headline's relative astrometry on AbsoluteVisual{KepOrbit}, in float64
+    # on the card as every AbsoluteVisual path runs, at prior draws
+    table = bench_table(ot)
+    model = build_basis_model(ot, ABSOLUTE, table, device="cuda", dtype=torch.float64)
+    ref = build_basis_model(ot, ABSOLUTE, table, device="cpu", dtype=torch.float64)
+    theta = ref.link(ref.sample_priors(torch.Generator().manual_seed(36), n_points))
+    chain = points_chain(ot, ref, theta, PLOT_POINT_CHAINS)
+    r = run(f"absolute physorbitplot n={PLOT_DRAWS[0]}", "physorbitplot", model, ref, chain,
+            dict(n_draws=PLOT_DRAWS[0]))
+    if r["launches"]["kepler_solve"] != PLOT_DRAWS[0] or r["launches"]["orbit_solve_fwd"]:
+        raise AssertionError(f"plots absolute physorbitplot: launches {r['launches']}, expected "
+                             f"the Kepler kernel once per draw and no fused forward")
+
+    with tempfile.TemporaryDirectory() as directory:
+        res["native"] = _native_check(directory)
+    imported = [m for m in ("matplotlib", "h5py") if m in sys.modules]
+    if imported:
+        raise AssertionError(f"plots: phase 36 imported {imported}")
+    res["seconds_panels"] = time.perf_counter() - t_phase
+
+    # (e) the kernels at the panels' shapes
+    res["fwd"] = plots_forward_rows(osk, elements, fwd_inputs)
+    res["kepler"] = {}
+    for dtype in sorted({d for _, d in res["kepler_shapes"]}, key=str):
+        shapes = [s for s, d in res["kepler_shapes"] if d == dtype]
+        res["kepler"].update(kepler_path_phase(kk, kepler_mod, shapes, dtypes=(dtype,)))
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"plots phase: {res['seconds']:.2f} s ({res['seconds_panels']:.2f} s the panels and the "
+        f"native reader, the rest the kernels at their shapes)")
+    return res
+
+
+def _forward_three_ways(osk, elements, elems, t) -> dict:
+    """The forward kernel and the float32 plain version on the same float32
+    inputs, each against the plain version in float64 on those inputs cast
+    to float64, and against each other: {"kernel_vs_plain" |
+    "kernel_vs_f64" | "plain_vs_f64": per-field worst share of
+    `_field_tolerances` (14,)}, "err": the largest |kernel - plain|, and
+    "fields": the rows compared (no sky fields where the orbit has no
+    parallax)."""
+    has_plx = bool(torch.isfinite(elems[7]).all())
+
+    def plain(x, tt):
+        orbit = elements.VisualOrbit(*x) if has_plx else elements.KepOrbit(*x[:7])
+        with torch.no_grad():
+            return torch.stack(elements._kep_visual_fields(orbit, tt)).double()
+
+    out = osk.orbit_solve_forward_cuda(elems, t).double()
+    p32, p64 = plain(elems, t), plain(elems.double(), t.double())
+    torch.cuda.synchronize()
+    fields = list(range(len(elements.FIELD_ROWS))) if has_plx else [
+        k for k in range(len(elements.FIELD_ROWS)) if k not in (9, 10, 11, 12)]
+    tol = _field_tolerances(elems, t, p64[0], torch.float32)
+
+    def worst(x, y):
+        err = (x - y).abs()
+        # the true anomaly is an angle: compare it modulo 2 pi
+        err[1] = (torch.remainder(err[1] + math.pi, 2 * math.pi) - math.pi).abs()
+        ratio = (err / tol).amax(dim=(1, 2))
+        ratio[[k for k in range(len(ratio)) if k not in fields]] = 0.0
+        return ratio
+
+    if not bool(torch.isfinite(out[fields]).all()):
+        raise AssertionError("plots: the forward kernel returned non-finite values")
+    return {"kernel_vs_plain": worst(out, p32), "kernel_vs_f64": worst(out, p64),
+            "plain_vs_f64": worst(p32, p64), "err": float((out - p32)[fields].abs().max()),
+            "fields": fields}
+
+
+def plots_forward_rows(osk, elements, inputs) -> dict:
+    """(e) for the forward kernel: at each shape (B, T) the panels launched
+    it with, the kernel against its plain version, each field within its
+    tolerance (`_field_tolerances`), on two sets of inputs: those a panel
+    gave it there (the draws' elements and the panel's epochs, kept by
+    `_plot_panel`), and `_orbit_inputs`' at (B, T), whose edge chains
+    (e = 0.99, a = 0.3 AU up to 120 periods from tp) the earlier shape
+    checks hold it on. Both sides are also held to the plain version in
+    float64 on the same inputs, the kernel within its tolerance and the
+    float32 plain version logged, so that a disagreement names the side
+    that errs. Then both are timed on the panel's inputs (plain, kernel,
+    kernel, plain). {(B, T): numbers}."""
+    f32, rows = torch.float32, {}
+    names = elements.FIELD_ROWS
+    for (b, n_t), (elems, t) in sorted(inputs.items()):
+        label = f"({b}, {n_t})"
+        edge_elems, edge_t = _orbit_inputs(b, n_t, f32)
+        checks = {"panel": _forward_three_ways(osk, elements, elems, t),
+                  "edge": _forward_three_ways(osk, elements, edge_elems, edge_t)}
+        for which, c in checks.items():
+            parts = []
+            for key in ("kernel_vs_plain", "kernel_vs_f64", "plain_vs_f64"):
+                k = int(c[key].argmax())
+                parts.append(f"{key} {names[k]} {float(c[key][k]):.3f}")
+            log(f"plots forward at {label} on the {which} inputs, worst share of the tolerance: "
+                f"{'; '.join(parts)}; max |kernel - plain| {c['err']:.3e}")
+            for key in ("kernel_vs_plain", "kernel_vs_f64"):
+                if not float(c[key].max()) <= 1.0:
+                    raise AssertionError(
+                        f"plots: the forward kernel at {label} on the {which} inputs, {key}: "
+                        f"{dict(zip(names, c[key].tolist()))}")
+        orbit = (elements.VisualOrbit(*elems) if bool(torch.isfinite(elems[7]).all())
+                 else elements.KepOrbit(*elems[:7]))
+
+        def plain_fwd():
+            with torch.no_grad():
+                return torch.stack(elements._kep_visual_fields(orbit, t))
+
+        n_iter = 100
+        ms_p_a = _time_ms(plain_fwd, n_iter)
+        ms_k_a = _time_ms(lambda: osk.orbit_solve_forward_cuda(elems, t), n_iter)
+        ms_k_b = _time_ms(lambda: osk.orbit_solve_forward_cuda(elems, t), n_iter)
+        ms_p_b = _time_ms(plain_fwd, n_iter)
+        rows[(b, n_t)] = dict(
+            ms=min(ms_k_a, ms_k_b), plain_ms=min(ms_p_a, ms_p_b),
+            err=max(c["err"] for c in checks.values()),
+            err_over_tol=max(float(c["kernel_vs_plain"].max()) for c in checks.values()),
+            edge={key: float(checks["edge"][key].max())
+                  for key in ("kernel_vs_plain", "kernel_vs_f64", "plain_vs_f64")})
+        log(f"timing plots forward {label}: kernel {rows[(b, n_t)]['ms']:.4f} ms, plain "
+            f"{rows[(b, n_t)]['plain_ms']:.4f} ms (runs: kernel {ms_k_a:.4f}/{ms_k_b:.4f}, "
+            f"plain {ms_p_a:.4f}/{ms_p_b:.4f})")
+    return rows
+
+
+def plots_kernel_keys(kernels, res) -> None:
+    """Phase 36's entries of the `kernels` line: every kernel's launches by
+    panel (`plots_launches`), and the forward kernel's and the Kepler
+    kernel's rows at the shapes the panels launched them with
+    (`plots_shapes`: float32, and float64 where the label says so; the
+    forward's with `edge`, its shares of the tolerance on `_orbit_inputs`'
+    edge chains)."""
+    f32 = torch.float32
+    for k in kernels:
+        name = k["name"]
+        k["plots_launches"] = {label: p["launches"].get(name, 0)
+                               for label, p in res["panels"].items()}
+        if name == "kepler_solve":
+            k["plots_shapes"] = {}
+            for (shape, dtype), count in sorted(res["kepler_shapes"].items(), key=str):
+                row, n = res["kepler"][(shape, dtype)], int(np.prod(shape))
+                label = str(shape) + ("" if dtype == f32 else " float64")
+                bnd = bound_ms(3 * (4 if dtype == f32 else 8) * n, OPS_KEPLER * n, dtype)
+                k["plots_shapes"][label] = {
+                    "launches": count, "max_abs_err": row["err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": bnd[0], "bound_by": bnd[1]}
+        elif name == "orbit_solve_fwd":
+            k["plots_shapes"] = {}
+            for (b, t), count in sorted(res["fwd_shapes"].items()):
+                row = res["fwd"][(b, t)]
+                bnd = bound_ms(4 * (8 * b + t + 14 * b * t), OPS_ORBIT_FWD * b * t, f32)
+                k["plots_shapes"][f"({b}, {t})"] = {
+                    "launches": count, "max_abs_err": row["err"],
+                    "max_err_over_tol": row["err_over_tol"], "edge": row["edge"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
 # After the main path, the longest paths run in processes of their own
 # (`_Workers`), each on the same card beside this one: an evaluation keeps
 # the card busy for under a fifth of its host time (PERF.md §5), so the
@@ -5621,6 +6172,8 @@ def main() -> int:
     parallel = done["evidence"]["parallel"]
     parallel_kernel_step(osk, elements, parallel)
     elapsed("parallel kernel step")
+    plots = plots_phase(ot, kk, osk, elements, kepler_mod, main)
+    elapsed("plots phase")
 
     f32 = torch.float32
     small, big = f"({CHAINS}, {N_EPOCHS})", f"({BIG_CHAINS}, {BIG_EPOCHS})"
@@ -5845,6 +6398,9 @@ def main() -> int:
     ex05_kernel_keys(kernels, ex05)
     evidence_kernel_keys(kernels, evidence, ores)
     parallel_kernel_keys(kernels, parallel)
+    plots_kernel_keys(kernels, plots)
+    if tuple(k["name"] for k in kernels) != KERNEL_NAMES:
+        raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -31,7 +31,11 @@ and the diagnostics, `ess_rhat_batch_device` on the card among them,
 `describe`), the chains and the tempering ladder sharded across
 processes on `torch.distributed` (`parallel`: `octofit_sharded`,
 `octofit_pigeons(mesh=)`, epoch sharding) and the profiling hooks
-(`utils`, `octofit(profile_dir=)`), written in PyTorch.
+(`utils`, `octofit(profile_dir=)`), the plots (`plots`, `octoplot`,
+`octocorner`; matplotlib is imported only by the functions that draw),
+Orbitize! HDF5 I/O (`loadhdf5`, `savehdf5`; `h5py` likewise), the live
+data layer (`net`, `datadeps`) and a native table reader (`native`, C++
+built with g++ at first use), written in PyTorch.
 `LogDensityModel(system, device=..., dtype=...)` fixes the device and
 dtype of every tensor the model makes. The device is the GPU unless the
 caller says `device="cpu"`. On a CUDA device the orbit solve runs as
@@ -71,6 +75,7 @@ from .model import (
     likelihoodname,
     generate_from_params,
 )
+from .model.chain_tools import construct_elements, mcmcchain2result
 from .likelihoods import (
     PlanetRelAstromObs,
     PlanetRelAstromLikelihood,
@@ -99,7 +104,11 @@ from .astrom import (
     G23HLikelihood,
 )
 from . import atmosphere
-from .atmosphere import sonora_photometry_interpolator, sonora_cooling_interpolator
+from .atmosphere import (
+    sonora_photometry_interpolator,
+    sonora_cooling_interpolator,
+    bhac15_mass_age_interpolator,
+)
 from . import images
 from .images import ImageObs, ImageLikelihood, LogLikelihoodMapObs, LogLikelihoodMap
 from . import interferometry
@@ -133,12 +142,26 @@ from .rv.data_sources import (
     radvel_posterior,
 )
 from . import io
+from . import io as octo_io
 from .io import savechain, loadchain
+from .io.orbitize import (
+    loadhdf5,
+    savehdf5,
+    Whereistheplanet_search,
+    Whereistheplanet_astrom,
+)
+from . import datadeps
+from . import net
+from .net import GOST_forecast, query_gaia_catalog, query_nss_tap, tap_query
 from .config import OctofitterConfig, get_config, set_config
 from .samplers import octofit, octofit_pigeons, octofit_rejection, dysample
+from .samplers.nested import octofit_nested
 from . import analysis
 from .analysis import (
     prior_only_model,
+    pointwise_like,
+    generate_kfold_systems,
+    psis_loo,
     CompletenessJob,
     CompletenessResult,
     CompletenessMap,
@@ -160,6 +183,8 @@ from .chains import (
 from . import interop
 from . import parallel
 from . import utils
+from . import plots
+from .plots import octoplot, octocorner
 
 
 def describe(chain):

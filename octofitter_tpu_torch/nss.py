@@ -3,8 +3,9 @@
 PyTorch port of `octofitter_tpu/nss.py` (the reference's `nss.jl`):
 convert Gaia DR3 NSS orbital solutions (Thiele-Innes elements) into model
 starting points and pseudo-chains for warm-starting fits. A solution comes
-as a row (a dict of NSS columns) or from a locally cached CSV of the TAP
-result; `NSS_TAP_QUERY` is the query that fetches one.
+as a row (a dict of NSS columns), from a locally cached CSV of the TAP
+result, or live from the Gaia archive by `net.query_nss_tap`, which sends
+`NSS_TAP_QUERY`.
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ def query_nss(gaia_id=None, *, cache_csv=None, row=None) -> dict:
 
     Provide `row` (a dict of NSS columns) or `cache_csv` (a locally cached
     TAP result, read with the `csv` module; with `gaia_id` the row of that
-    `source_id`). The live TAP query (`nss.jl:29-93`) is not ported: with
-    `gaia_id` alone this raises RuntimeError.
+    `source_id`); with only `gaia_id` the live TAP path
+    (`net.query_nss_tap`, mirroring `nss.jl:29-93`) is used, which itself
+    reads its on-disk response cache first, so previously fetched
+    solutions work offline. A failed query raises RuntimeError.
     """
     if row is not None:
         return dict(row)
@@ -66,10 +69,16 @@ def query_nss(gaia_id=None, *, cache_csv=None, row=None) -> dict:
             raise KeyError(f"source {gaia_id} not found in {cache_csv}")
         return rows[0]
     if gaia_id is not None:
-        raise RuntimeError(
-            f"NSS TAP query for {gaia_id}: this package makes no network "
-            "queries; pass row= (dict of NSS columns) or cache_csv=."
-        )
+        from .net import query_nss_tap
+
+        try:
+            return query_nss_tap(gaia_id)
+        except Exception as e:  # any failure of the query or of its reply
+            raise RuntimeError(
+                f"NSS TAP query for {gaia_id} failed ({e!r}); in "
+                "offline environments pass row= (dict of NSS columns) "
+                "or cache_csv=."
+            ) from e
     raise RuntimeError(
         "Pass gaia_id=, row= (dict of NSS columns), or cache_csv=."
     )

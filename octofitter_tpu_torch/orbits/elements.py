@@ -310,15 +310,16 @@ def _solve_common(elem, t, a, e, epoch_ndim=None):
     return EA, nu, r, X, Y, VX, VY
 
 
-def _kep_visual_fields(elem, t):
+def _kep_visual_fields(elem, t, epoch_ndim=None):
     """The 14 solution fields of a KepOrbit or VisualOrbit, composed of
     plain torch ops around `kepler_solver`. A KepOrbit has no parallax:
-    its four sky fields are NaN."""
-    EA, nu, r, X, Y, VX, VY = _solve_common(elem, t, elem.a, elem.e)
-    A, B, F, G = (_per_epoch(x, t) for x in _thiele_innes_unit(elem))
-    sw = _per_epoch(torch.sin(elem.omega), t)
-    cw = _per_epoch(torch.cos(elem.omega), t)
-    si = _per_epoch(torch.sin(elem.i), t)
+    its four sky fields are NaN. With `epoch_ndim` the epochs t carry the
+    batch axes too, one set per orbit (`_solve_common`)."""
+    EA, nu, r, X, Y, VX, VY = _solve_common(elem, t, elem.a, elem.e, epoch_ndim)
+    A, B, F, G = (_per_epoch(x, t, epoch_ndim) for x in _thiele_innes_unit(elem))
+    sw = _per_epoch(torch.sin(elem.omega), t, epoch_ndim)
+    cw = _per_epoch(torch.cos(elem.omega), t, epoch_ndim)
+    si = _per_epoch(torch.sin(elem.i), t, epoch_ndim)
     posx = B * X + G * Y
     posy = A * X + F * Y
     posz = si * (sw * X + cw * Y)
@@ -326,7 +327,7 @@ def _kep_visual_fields(elem, t):
     vy = A * VX + F * VY
     vz = si * (sw * VX + cw * VY)
     if isinstance(elem, VisualOrbit):
-        plx = _per_epoch(elem.plx, t)
+        plx = _per_epoch(elem.plx, t, epoch_ndim)
     else:
         plx = torch.full_like(X, math.nan)
     raoff = posx * plx

@@ -40,7 +40,8 @@ import chip_smoke
 # loaders and radvel_posterior, the next 7; the absolute-astrometry slice
 # the next 6; the G23H slice the next 11: G23H, the observable and
 # stability priors, photometry and the Sonora interpolators; the images,
-# interferometry and transits slice the last 12).
+# interferometry and transits slice the next 12, the evidence and validation
+# slice the next 13; the last slice the 6 of the plots and Orbitize! I/O).
 PORTED = [
     "Planet", "System", "UniformCircular", "Sine", "KDEDist", "theta_at_epoch_to_tperi",
     "ofti_linear_solve", "likelihoodname", "PlanetRelAstromObs", "PlanetRelAstromLikelihood",
@@ -64,6 +65,8 @@ PORTED = [
     "dysample", "prior_only_model", "CompletenessJob", "CompletenessResult", "CompletenessMap",
     "completeness_jobs", "run_completeness_trial", "assemble_completeness", "completeness_map",
     "query_nss", "nss_to_starting_point", "initialize_from_nss", "nss_to_model_chain",
+    "loadhdf5", "savehdf5", "Whereistheplanet_search", "Whereistheplanet_astrom",
+    "octoplot", "octocorner",
 ]
 
 
@@ -84,10 +87,22 @@ def test_appendix_a_name_is_exported(name):
     assert hasattr(ot, name), name
 
 
-@pytest.mark.parametrize("module", ["parallel", "utils"])
+def test_all_of_appendix_a_is_ported():
+    assert sorted(PORTED) == sorted(appendix_a()) and len(PORTED) == 90
+
+
+def test_every_public_name_of_the_jax_package_is_in_the_port():
+    """No list of exceptions: the port has each public top-level name of
+    `octofitter_tpu` (functions, classes and submodules alike)."""
+    public = [n for n in dir(oc) if not n.startswith("_")]
+    assert len(public) > 100
+    assert [n for n in public if not hasattr(ot, n)] == []
+
+
+@pytest.mark.parametrize("module", ["parallel", "utils", "plots"])
 def test_subpackage_exports_match_jax(module):
-    """`parallel` (the nine names of the JAX package's) and `utils`
-    (`profile_trace`, `timing_probe`)."""
+    """`parallel` (the nine names of the JAX package's), `utils`
+    (`profile_trace`, `timing_probe`) and `plots` (19)."""
     import importlib
 
     want = importlib.import_module(f"octofitter_tpu.{module}").__all__

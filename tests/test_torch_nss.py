@@ -63,11 +63,16 @@ def jax_side():
     return _JAX.result()
 
 
-def test_query_nss_row_csv_and_offline(tmp_path):
+def test_query_nss_row_csv_and_offline(tmp_path, monkeypatch):
     """A row comes back as a dict; a cached CSV read with the csv module
     gives the row of the asked source_id as pandas reads it in the JAX
-    package; gaia_id alone raises RuntimeError naming row= and
-    cache_csv=."""
+    package; gaia_id alone queries the TAP service (here a closed local
+    port, with an empty cache) and raises RuntimeError naming row= and
+    cache_csv= when the query fails."""
+    from octofitter_tpu_torch import net
+
+    monkeypatch.setattr(net, "GAIA_TAP_URL", "http://127.0.0.1:1/tap/sync")
+    monkeypatch.setenv("OCTOFITTER_DATA_DIR", str(tmp_path / "data"))
     assert tnss.query_nss(row=ROW) == ROW
     other = dict(ROW, source_id=42, eccentricity=0.5)
     path = tmp_path / "nss.csv"
